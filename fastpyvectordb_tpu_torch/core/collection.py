@@ -1,0 +1,649 @@
+"""Core Collection: CRUD + exact and quantized search + filters + persistence
+(port of ``fastpyvectordb_tpu/core/collection.py``, the exact and int8/int4
+two-stage slice).
+
+Vectors live in a DeviceVectorStore on the collection's torch device
+(``device="cuda"`` unless the caller passes ``device="cpu"``).  Filters
+compile to host masks that the store moves to the device as ``torch.bool``.
+Deletes tombstone the validity mask and ``compact()`` physically reclaims.
+Persistence is one FPVT container per collection, byte-compatible with the
+JAX package, and goes through ``state.collection_from_sections``.
+
+Entry points of the JAX Collection that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item (ANN indexes, WAL
+durability, ``optimize``, ``prewarm``, streaming and sharded search).
+"""
+
+from __future__ import annotations
+
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import topk as topk_mod
+from ..persist.format import load_container, save_container
+from ..utils import resolve_device
+from .filters import ColumnView, Filter
+from .store import DeviceVectorStore
+from .types import CollectionConfig, DistanceMetric, SearchResult, as_f32_matrix
+
+STORE_FILE = "collection.fpvt"
+
+_ANN_ITEM = "ANN indexes (ROADMAP queue A item 5: IVF and grouped IVF)"
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet: {item}")
+
+
+def _host(q) -> np.ndarray:
+    if isinstance(q, torch.Tensor):
+        return q.detach().float().cpu().numpy()
+    return np.asarray(q, dtype=np.float32)
+
+
+class Collection:
+    """A named set of vectors with string ids and metadata dicts."""
+
+    def __init__(self, config: CollectionConfig,
+                 base_path: Optional[Path] = None, device=None):
+        self.device = resolve_device(device)
+        self.config = config
+        self.base_path = Path(base_path) if base_path is not None else None
+        self._lock = threading.RLock()
+        self._store = DeviceVectorStore(config.dimensions,
+                                        storage_dtype=config.storage_dtype,
+                                        device=self.device)
+        self._id_to_row: Dict[str, int] = {}
+        self._row_to_id: List[Optional[str]] = []
+        self._metadata: List[Optional[dict]] = []
+        self._version = 0  # bumped on any mutation; invalidates caches
+        self._columns: Optional[ColumnView] = None
+        self._columns_version = -1
+        self._columns_dirty: Optional[str] = None  # None | "sync" | "rebuild"
+        self._columns_patchset: set = set()
+        self._mask_cache: Dict[str, Tuple[int, np.ndarray]] = {}
+        self._ids_arr: Optional[np.ndarray] = None
+        self._ids_arr_version = -1
+        self._quantized = None  # optional quantized scan (quant/scan.py)
+        self._rebuild_thread: Optional[threading.Thread] = None
+        self._row_epoch = 0  # bumped by row renumbering (compact/load)
+        self._serving_mode: Optional[str] = None
+        requested_durability = getattr(config, "durability", "snapshot")
+        if requested_durability == "wal" or (
+                self.base_path is not None
+                and (self.base_path / "wal.log").exists()):
+            # replaying (or ignoring) a JAX-written log is not ported:
+            # loading only the snapshot would drop the logged writes
+            raise _not_ported("durability='wal'",
+                              "WAL durability (ROADMAP queue A item 10)")
+        if self.base_path is not None and (self.base_path / STORE_FILE).exists():
+            self._load()
+            self.config.durability = requested_durability
+        if self.base_path is not None:
+            self._write_config_sidecar()
+
+    def _write_config_sidecar(self) -> None:
+        import dataclasses
+        import errno
+        import json as _json
+        import os
+        d = dataclasses.asdict(self.config)
+        d["metric"] = DistanceMetric.parse(self.config.metric).value
+        payload = _json.dumps(d, default=str)
+        target = self.base_path / "config.json"
+        try:
+            if target.exists() and target.read_text() == payload:
+                return
+            self.base_path.mkdir(parents=True, exist_ok=True)
+            tmp = self.base_path / "config.json.tmp"
+            tmp.write_text(payload)
+            os.replace(tmp, target)
+        except OSError as e:
+            # only read-only/permission errors are survivable (opening a
+            # snapshot mount must work)
+            if e.errno not in (errno.EROFS, errno.EACCES, errno.EPERM):
+                raise
+
+    @staticmethod
+    def load_config_sidecar(base_path) -> Optional[CollectionConfig]:
+        import dataclasses
+        import json as _json
+        f = Path(base_path) / "config.json"
+        if not f.exists():
+            return None
+        try:
+            d = _json.loads(f.read_text())
+        except (OSError, _json.JSONDecodeError):
+            return None
+        names = {fld.name for fld in dataclasses.fields(CollectionConfig)}
+        return CollectionConfig(**{k: v for k, v in d.items() if k in names})
+
+    # ------------------------------------------------------------------
+    # CRUD
+    # ------------------------------------------------------------------
+    def insert(self, vector, id: Optional[str] = None,
+               metadata: Optional[dict] = None) -> str:
+        ids = self.insert_batch(as_f32_matrix(vector, self.config.dimensions),
+                                [id] if id is not None else None,
+                                [metadata] if metadata is not None else None)
+        return ids[0]
+
+    def insert_batch(self, vectors, ids: Optional[Sequence[str]] = None,
+                     metadatas: Optional[Sequence[Optional[dict]]] = None
+                     ) -> List[str]:
+        arr = as_f32_matrix(vectors, self.config.dimensions)
+        n = arr.shape[0]
+        if ids is None:
+            import uuid
+            ids = [str(uuid.uuid4()) for _ in range(n)]
+        else:
+            ids = [str(i) for i in ids]
+            if len(ids) != n:
+                raise ValueError(f"got {len(ids)} ids for {n} vectors")
+            if len(set(ids)) != n:
+                raise ValueError("duplicate ids within batch")
+        if metadatas is not None and len(metadatas) != n:
+            raise ValueError(f"got {len(metadatas)} metadatas for {n} vectors")
+        with self._lock:
+            dup = [i for i in ids if i in self._id_to_row]
+            if dup:
+                raise ValueError(f"IDs already exist: {dup[:8]}")
+            rows = self._store.append(arr)
+            for rid, row in zip(ids, rows):
+                self._id_to_row[rid] = int(row)
+            self._row_to_id.extend(ids)
+            self._metadata.extend(
+                [dict(m) if m else {} for m in metadatas]
+                if metadatas is not None else [{} for _ in range(n)])
+            self._bump(append_only=True)
+        return list(ids)
+
+    def upsert(self, vector, id: str, metadata: Optional[dict] = None) -> str:
+        """Insert, replacing any row with the same id, under the lock."""
+        with self._lock:
+            self.delete(id)
+            return self.insert(vector, id, metadata)
+
+    def get(self, id: str, include_vector: bool = False) -> Optional[dict]:
+        return self.get_batch([id], include_vector)[0]
+
+    def get_batch(self, ids: Sequence[str], include_vectors: bool = False
+                  ) -> List[Optional[dict]]:
+        with self._lock:
+            found = [self._id_to_row.get(str(i)) for i in ids]
+            rows = [r for r in found if r is not None]
+            vecs = (self._store.get_rows(np.asarray(rows, dtype=np.int64))
+                    if include_vectors and rows else None)
+            out: List[Optional[dict]] = []
+            vi = 0
+            for i, r in zip(ids, found):
+                if r is None:
+                    out.append(None)
+                    continue
+                d = {"id": str(i), "metadata": dict(self._metadata[r] or {})}
+                if include_vectors:
+                    d["vector"] = vecs[vi]
+                    vi += 1
+                out.append(d)
+            return out
+
+    def delete(self, id: str) -> bool:
+        return self.delete_batch([id]) == 1
+
+    def delete_batch(self, ids: Sequence[str]) -> int:
+        with self._lock:
+            rows = []
+            for i in ids:
+                r = self._id_to_row.pop(str(i), None)
+                if r is not None:
+                    rows.append(r)
+                    self._row_to_id[r] = None
+                    self._metadata[r] = None
+            if rows:
+                self._store.delete_rows(np.asarray(rows, dtype=np.int64))
+                # the quantized snapshot keeps serving: the store validity
+                # mask excludes tombstones at search time
+                self._bump(keep_indexes=True, patched_rows=rows)
+            return len(rows)
+
+    def update_metadata(self, id: str, metadata: dict,
+                        merge: bool = True) -> bool:
+        with self._lock:
+            r = self._id_to_row.get(str(id))
+            if r is None:
+                return False
+            if merge and self._metadata[r]:
+                self._metadata[r] = {**self._metadata[r], **metadata}
+            else:
+                self._metadata[r] = dict(metadata)
+            self._bump(keep_indexes=True, patched_rows=[r])
+            return True
+
+    # ------------------------------------------------------------------
+    # Search
+    # ------------------------------------------------------------------
+    def search(self, query, k: int = 10, filter: Optional[Filter] = None,
+               include_vectors: bool = False, exact: Optional[bool] = None
+               ) -> List[SearchResult]:
+        return self.search_batch(as_f32_matrix(query, self.config.dimensions),
+                                 k, filter, include_vectors, exact)[0]
+
+    def search_batch(self, queries, k: int = 10,
+                     filter: Optional[Filter] = None,
+                     include_vectors: bool = False,
+                     exact: Optional[bool] = None
+                     ) -> List[List[SearchResult]]:
+        q = as_f32_matrix(queries, self.config.dimensions, allow_device=True)
+        with self._lock:
+            if self._store.n_valid == 0:
+                return [[] for _ in range(q.shape[0])]
+            dists, rows = self._search_rows(q, k, filter, exact)
+            return self._assemble(q, dists, rows, k, include_vectors)
+
+    def search_arrays(self, queries, k: int = 10,
+                      filter: Optional[Filter] = None,
+                      exact: Optional[bool] = None):
+        """Array-shaped search: ``(ids, scores, rows)`` — an object ndarray
+        of ids (B, k; None where fewer than k hits), an f32 score grid
+        (B, k; +inf on empty slots) and the int32 store rows (-1 empty)."""
+        q = as_f32_matrix(queries, self.config.dimensions, allow_device=True)
+        with self._lock:
+            b = q.shape[0]
+            if self._store.n_valid == 0:
+                return self._empty_arrays(b, k)
+            dists, rows = self._search_rows(q, k, filter, exact)
+            return self._arrays_of(dists, rows, k)
+
+    @staticmethod
+    def _empty_arrays(b: int, k: int):
+        return (np.full((b, k), None, dtype=object),
+                np.full((b, k), np.inf, dtype=np.float32),
+                np.full((b, k), -1, dtype=np.int32))
+
+    def search_arrays_stream(self, *args, **kwargs):
+        raise _not_ported("search_arrays_stream",
+                          "pipelined serving on a CUDA side stream "
+                          "(ROADMAP queue A item 12)")
+
+    def _arrays_of(self, dists, rows, k: int):
+        """(dists, rows) -> the (ids, scores, rows) triple of
+        ``search_arrays``.  Caller holds the lock."""
+        dists = np.asarray(dists)[:, :k].astype(np.float32, copy=False)
+        rows = np.asarray(rows)[:, :k]
+        ok = np.asarray(topk_mod.valid_hits(dists))
+        nrow = len(self._row_to_id)
+        ok &= (rows >= 0) & (rows < max(nrow, 1))
+        if nrow:
+            ids = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
+            ok &= ids != None  # noqa: E711 - elementwise
+        else:
+            ids = np.full(rows.shape, None, dtype=object)
+        ids = np.where(ok, ids, None)
+        dists = np.where(ok, dists, np.float32(np.inf))
+        rows = np.where(ok, rows, -1).astype(np.int32, copy=False)
+        return ids, dists, rows
+
+    def _search_rows(self, q, k: int, filter: Optional[Filter],
+                     exact: Optional[bool]):
+        """Shared dispatch (quantized serving default | exact masked scan)
+        -> (dists, rows).  With no ANN index ported, ``exact=False`` runs
+        the exact scan, as the JAX package does when no index is built.
+        Caller holds the lock and has handled the empty store."""
+        if (exact is None and self._serving_mode == "quantized"
+                and self._quantized is not None):
+            return self._quantized_rows(_host(q), k, None, filter)
+        mask = self._filter_mask(filter)
+        return self._store.search(
+            q, k, self.config.metric, extra_mask=mask,
+            compute_dtype=self.config.compute_dtype)
+
+    def prewarm(self, *args, **kwargs):
+        raise _not_ported("prewarm",
+                          "kernel warm-up replacing the XLA compile-cache "
+                          "primer (ROADMAP queue A item 15)")
+
+    def _ids_object_array(self) -> np.ndarray:
+        """``_row_to_id`` as an object ndarray, memoized per version."""
+        if self._ids_arr is None or self._ids_arr_version != self._version \
+                or len(self._ids_arr) != len(self._row_to_id):
+            self._ids_arr = np.array(self._row_to_id, dtype=object)
+            self._ids_arr_version = self._version
+        return self._ids_arr
+
+    def _assemble(self, q, dists: np.ndarray, rows: np.ndarray,
+                  k: int, include_vectors: bool) -> List[List[SearchResult]]:
+        dists = np.asarray(dists)
+        rows = np.asarray(rows)
+        ok = np.asarray(topk_mod.valid_hits(dists))
+        nrow = len(self._row_to_id)
+        in_range = (rows >= 0) & (rows < nrow)
+        if nrow:
+            rid_grid = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
+            ok = ok & in_range & (rid_grid != None)  # noqa: E711
+        else:
+            ok = ok & in_range
+            rid_grid = rows  # unused: ok is all-False
+        if include_vectors:
+            vecs = self._store.get_rows(
+                np.maximum(rows, 0).reshape(-1).astype(np.int64)
+            ).reshape(rows.shape[0], rows.shape[1], -1)
+        md = self._metadata
+        dlist = dists.tolist()
+        rlist = rows.tolist()
+        idlist = rid_grid.tolist() if nrow else rlist
+        all_ok = bool(ok.all())
+        full_sel = list(range(min(k, rows.shape[1])))
+        results: List[List[SearchResult]] = []
+        for bi in range(rows.shape[0]):
+            if all_ok:
+                sel = full_sel
+            else:
+                sel = np.nonzero(ok[bi])[0][:k].tolist()
+            drow, rrow, irow = dlist[bi], rlist[bi], idlist[bi]
+            hits = []
+            for ki in sel:
+                m = md[rrow[ki]]
+                hits.append(SearchResult(
+                    id=irow[ki], score=drow[ki],
+                    metadata={} if m is None else dict(m),
+                    vector=(vecs[bi, ki] if include_vectors else None)))
+            results.append(hits)
+        return results
+
+    # ------------------------------------------------------------------
+    # Filters
+    # ------------------------------------------------------------------
+    def _column_view(self) -> ColumnView:
+        if self._columns is not None and self._columns_version != self._version \
+                and self._columns_dirty == "sync":
+            self._columns.sync_appended()
+            if self._columns_patchset:
+                self._columns.patch_rows(sorted(self._columns_patchset))
+            self._columns_patchset.clear()
+            self._columns_version = self._version
+            self._columns_dirty = None
+        if self._columns is None or self._columns_version != self._version:
+            self._columns = ColumnView(self._metadata)
+            self._columns_version = self._version
+            self._columns_dirty = None
+            self._columns_patchset.clear()
+        return self._columns
+
+    def _filter_mask(self, filter: Optional[Filter]) -> Optional[np.ndarray]:
+        """Compile a Filter to a host boolean mask over rows [0, count),
+        cached per (fingerprint, version)."""
+        if filter is None:
+            return None
+        fp = filter.fingerprint()
+        cached = self._mask_cache.get(fp)
+        if cached is not None and cached[0] == self._version:
+            return cached[1]
+        mask = filter.mask(self._column_view())
+        if len(self._mask_cache) > 64:
+            self._mask_cache.clear()
+        self._mask_cache[fp] = (self._version, mask)
+        return mask
+
+    def _bump(self, append_only: bool = False, keep_indexes: bool = False,
+              patched_rows: Optional[Sequence[int]] = None) -> None:
+        self._version += 1
+        if patched_rows is not None:
+            if self._columns_dirty != "rebuild":
+                self._columns_patchset.update(int(r) for r in patched_rows)
+                self._columns_dirty = "sync"
+        elif not append_only:
+            self._columns_dirty = "rebuild"
+        elif self._columns_dirty != "rebuild":
+            self._columns_dirty = "sync"
+        if append_only or keep_indexes:
+            # appended rows are served by the exact tail merge, deletes by
+            # the validity mask; a threshold-triggered rebuild amortizes
+            return
+        self._quantized = None
+
+    def _index_rebuild_due(self, snapshot) -> bool:
+        """True when a snapshot built over ``built_count`` rows has drifted
+        (tail growth or mass deletes) enough that a rebuild beats serving
+        through the merge path."""
+        built_count = snapshot.built_count
+        tail = self._store.count - built_count
+        return (tail > max(built_count // 4, 4096)
+                or self._store.n_valid * 2 < snapshot.built_n_valid)
+
+    def _spawn_rebuild(self) -> None:
+        """Background quantized rebuild (one in flight per collection):
+        build off-lock with the live snapshot's recipe, then swap it in,
+        guarded against row renumbering and against the snapshot having
+        been replaced meanwhile.  Caller holds the lock."""
+        t = self._rebuild_thread
+        if t is not None and t.is_alive():
+            return
+        epoch = self._row_epoch
+        snap = self._quantized
+
+        def runner():
+            from ..quant.scan import QuantizedScan
+            try:
+                new = QuantizedScan.build(self, kind=snap.kind)
+            except Exception as e:  # noqa: BLE001 - background best-effort
+                import sys
+                print(f"background quantized rebuild failed "
+                      f"({type(e).__name__}: {e}); serving continues on "
+                      "the stale snapshot + tail merge", file=sys.stderr)
+                return
+            new.default_rerank = snap.default_rerank  # tuned depth survives
+            with self._lock:
+                if self._quantized is snap and self._row_epoch == epoch:
+                    self._quantized = new
+
+        t = threading.Thread(target=runner, daemon=True,
+                             name=f"fpv-rebuild-{self.config.name}")
+        self._rebuild_thread = t
+        t.start()
+
+    def wait_for_rebuild(self, timeout: Optional[float] = None) -> bool:
+        """Block until any in-flight background rebuild finishes (False on
+        timeout)."""
+        t = self._rebuild_thread
+        if t is None or not t.is_alive():
+            return True
+        t.join(timeout)
+        return not t.is_alive()
+
+    def _tail_exact(self, q: np.ndarray, k: int,
+                    mask: Optional[np.ndarray], start: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact scan restricted to rows appended after a snapshot."""
+        tm = np.zeros((self._store.count,), dtype=bool)
+        tm[start:] = True
+        if mask is not None:
+            tm[: mask.shape[0]] &= mask
+        return self._store.search(
+            q, k, self.config.metric, extra_mask=tm,
+            compute_dtype=self.config.compute_dtype)
+
+    # ------------------------------------------------------------------
+    # ANN / quantization
+    # ------------------------------------------------------------------
+    _AUTOTUNE_MIN_ROWS = 4096
+
+    def _sample_live_queries(self, n: int = 32) -> Optional[np.ndarray]:
+        """Deterministic strided sample of live rows (self-query tuning
+        set), spread across the corpus."""
+        live = self._store.live_rows_host()
+        if live.size == 0:
+            return None
+        take = int(min(n, live.size))
+        idx = live[np.linspace(0, live.size - 1, take).astype(np.int64)]
+        return self._store.get_rows(idx.astype(np.int64))
+
+    def build_ann(self, *args, **kwargs):
+        raise _not_ported("build_ann", _ANN_ITEM)
+
+    def optimize(self, *args, **kwargs):
+        raise _not_ported("optimize",
+                          "cost model and optimize() (ROADMAP queue A "
+                          "item 11)")
+
+    def enable_quantized_scan(self, kind: str = "int8",
+                              tune: Optional[bool] = None,
+                              tune_target: float = 0.95,
+                              tune_queries: int = 32):
+        """Build the two-stage quantized scan snapshot ("int8" or "int4").
+        By default corpora >= 4096 rows tune the re-rank depth on sampled
+        self-queries (``tune_rerank``); ``tune=False`` skips it."""
+        from ..quant.scan import QuantizedScan
+        with self._lock:
+            self._quantized = QuantizedScan.build(self, kind=kind)
+            if tune is None:
+                tune = self._store.n_valid >= self._AUTOTUNE_MIN_ROWS
+            if tune:
+                qs = self._sample_live_queries(tune_queries)
+                if qs is not None:
+                    self._quantized.tune_rerank(qs, target_recall=tune_target)
+            return self._quantized
+
+    def search_quantized(self, queries, k: int = 10,
+                         rerank: Optional[int] = None,
+                         filter: Optional[Filter] = None,
+                         include_vectors: bool = False
+                         ) -> List[List[SearchResult]]:
+        """Two-stage compressed scan -> exact re-rank."""
+        q = as_f32_matrix(queries, self.config.dimensions)
+        with self._lock:
+            if self._store.n_valid == 0 and self._store.count == 0:
+                return [[] for _ in range(q.shape[0])]
+            dists, rows = self._quantized_rows(q, k, rerank, filter)
+            return self._assemble(q, dists, rows, k, include_vectors)
+
+    def search_quantized_arrays(self, queries, k: int = 10,
+                                rerank: Optional[int] = None,
+                                filter: Optional[Filter] = None):
+        """Array-shaped quantized search: the ``(ids, scores, rows)``
+        triple of ``search_arrays``."""
+        q = as_f32_matrix(queries, self.config.dimensions)
+        with self._lock:
+            if self._store.n_valid == 0 and self._store.count == 0:
+                return self._empty_arrays(q.shape[0], k)
+            dists, rows = self._quantized_rows(q, k, rerank, filter)
+            return self._arrays_of(dists, rows, k)
+
+    def _quantized_rows(self, q: np.ndarray, k: int,
+                        rerank: Optional[int], filter: Optional[Filter]):
+        """Shared quantized dispatch -> (dists, rows).  Caller holds the
+        lock and has handled the empty store."""
+        if self._quantized is None:
+            self.enable_quantized_scan()
+        elif self._index_rebuild_due(self._quantized):
+            if self.config.rebuild == "inline":
+                tuned = self._quantized.default_rerank
+                self.enable_quantized_scan(kind=self._quantized.kind,
+                                           tune=False)
+                self._quantized.default_rerank = tuned
+            else:
+                self._spawn_rebuild()
+        mask = self._filter_mask(filter)
+        if rerank is None:
+            rerank = self._quantized.default_rerank
+        dists, rows = self._quantized.search(q, k, rerank=rerank, mask=mask)
+        built = self._quantized.built_count
+        if self._store.count > built:
+            if rerank <= 1:
+                # coarse-unit scores: rescore exactly before merging with
+                # the exact-unit tail distances
+                dists = self._exact_rescore(q, dists, rows)
+            td, tr = self._tail_exact(q, k, mask, built)
+            dists, rows = topk_mod.merge_topk_host(dists, rows, td, tr, k)
+        return dists, rows
+
+    def _exact_rescore(self, q: np.ndarray, dists: np.ndarray,
+                       rows: np.ndarray) -> np.ndarray:
+        """Exact metric distances for (B, k) candidate rows (host BLAS on a
+        tiny gather); masked entries become +inf."""
+        from ..kernels.distances import MASKED, host_exact_scores
+        rows = np.asarray(rows)
+        cand = self._store.get_rows(np.maximum(rows, 0).reshape(-1)) \
+            .reshape(rows.shape[0], rows.shape[1], -1)
+        out = host_exact_scores(q, cand, self.config.metric)
+        bad = (rows < 0) | (np.asarray(dists) >= float(MASKED) * 0.5)
+        return np.where(bad, np.inf, out).astype(np.float32)
+
+    def as_sharded_searcher(self, *args, **kwargs):
+        raise _not_ported("as_sharded_searcher",
+                          "multi-card search over torch.distributed "
+                          "(ROADMAP queue A item 14)")
+
+    # ------------------------------------------------------------------
+    # Introspection
+    # ------------------------------------------------------------------
+    def count(self) -> int:
+        return self._store.n_valid
+
+    def __len__(self) -> int:
+        return self.count()
+
+    def stats(self) -> dict:
+        return {
+            "name": self.config.name,
+            "count": self.count(),
+            "allocated_rows": self._store.count,
+            "capacity": self._store.capacity,
+            "dimensions": self.config.dimensions,
+            "metric": self.config.metric.value,
+            "index": self.config.index,
+            "device": str(self.device),
+            "device_bytes": int(self._store.capacity * self.config.dimensions
+                                * self._store.vectors.element_size()),
+        }
+
+    # ------------------------------------------------------------------
+    # Maintenance
+    # ------------------------------------------------------------------
+    def compact(self) -> int:
+        """Physically remove tombstones; returns rows reclaimed."""
+        with self._lock:
+            before = self._store.count
+            live = self._store.compact()
+            old_ids, old_meta = self._row_to_id, self._metadata
+            self._row_to_id = [old_ids[r] for r in live]
+            self._metadata = [old_meta[r] for r in live]
+            self._id_to_row = {i: j for j, i in enumerate(self._row_to_id)}
+            self._row_epoch += 1  # fence out a rebuild over old numbering
+            self._bump()
+            return before - self._store.count
+
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
+    def export_sections(self) -> Tuple[dict, dict]:
+        """The container sections and meta this collection saves — the
+        same layout the JAX package writes."""
+        arrays = self._store.export_arrays()
+        sections = {"vectors": arrays["vectors"], "valid": arrays["valid"],
+                    "ids": self._row_to_id, "metadata": self._metadata}
+        meta = {"config": self.config.to_dict(), "kind": "collection"}
+        if self._serving_mode is not None:
+            meta["serving_mode"] = self._serving_mode
+        if self._quantized is not None:
+            q_sections, q_meta = self._quantized.export_sections()
+            sections.update(q_sections)
+            meta["quantized"] = q_meta
+        return sections, meta
+
+    def save(self) -> None:
+        if self.base_path is None:
+            raise ValueError("collection has no base_path; cannot save")
+        with self._lock:
+            self.base_path.mkdir(parents=True, exist_ok=True)
+            sections, meta = self.export_sections()
+            save_container(self.base_path / STORE_FILE, sections, meta=meta)
+
+    def _load(self) -> None:
+        from ..state import restore_into
+        c = load_container(self.base_path / STORE_FILE)
+        restore_into(self, c.meta, {k: c.read(k) for k in c.keys()})

@@ -1,0 +1,204 @@
+"""Quantized-scan kernels (port of ``fastpyvectordb_tpu/kernels/pallas_quant.py``
+``sq_scores`` / ``int4_scores``).
+
+Each entry has two versions:
+
+  * the hand-written Hopper kernel in ``csrc/quant_scores.cu``, built with
+    ``nvcc`` at first use and bound with ``ctypes``;
+  * a plain PyTorch version of the same math (``*_plain``).
+
+The wrapper takes the plain version only for tensors on the CPU.  For a
+CUDA tensor it launches the kernel or raises — a failed build, a refused
+launch or a missing toolkit is an error, never a silent fallback.
+``LAUNCHES`` counts kernel launches (plain calls do not count).
+
+Unlike the Pallas callers, nothing is padded: the CUDA kernel masks its own
+ragged B, N and D edges, so the TPU's 8/128/1024 padding helpers
+(``Int4Quantizer.pallas_layout`` / ``pallas_query``) are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..core.types import DistanceMetric
+
+LAUNCHES = {"sq_scores": 0, "int4_scores": 0}
+
+_METRIC_CODE = {DistanceMetric.COSINE: 0, DistanceMetric.L2: 1,
+                DistanceMetric.DOT: 2}
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "quant_scores.cu"
+# <repo>/build/kernels (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/quant_scores.cu`` (once per source hash) and load it.
+    Raises with the compiler's output if the build fails."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    src = _SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    so = BUILD_DIR / f"libquant_scores_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.fpv_sq_scores, lib.fpv_int4_scores):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _prep_queries(queries: torch.Tensor, metric: DistanceMetric):
+    """(q_in, qsq): cosine queries normalised, L2 squared norms, as in
+    pallas_quant.py's wrappers (qsq is zeros where unused)."""
+    q = queries.float()
+    if metric == DistanceMetric.COSINE:
+        qn = q / torch.clamp(torch.linalg.norm(q, dim=1, keepdim=True),
+                             min=1e-30)
+        return qn, torch.zeros((q.shape[0],), device=q.device)
+    if metric == DistanceMetric.L2:
+        return q, (q * q).sum(dim=1)
+    return q, torch.zeros((q.shape[0],), device=q.device)
+
+
+def _epilogue(cross, v, qsq, metric):
+    if metric == DistanceMetric.COSINE:
+        rinv = torch.rsqrt(torch.clamp((v * v).sum(dim=1), min=1e-30))
+        return 1.0 - cross * rinv[None, :]
+    if metric == DistanceMetric.L2:
+        vsq = (v * v).sum(dim=1)
+        return torch.clamp(qsq[:, None] + vsq[None, :] - 2.0 * cross,
+                           min=0.0)
+    return -cross
+
+
+def _bf16_cross(q_in, v):
+    # bf16 operands, f32 products and sums: upcast AFTER rounding, because
+    # torch.matmul of bf16 tensors would return bf16-rounded scores
+    return q_in.bfloat16().float() @ v.bfloat16().float().T
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(N, W) halves-packed uint8 -> (N, 2W) uint8 codes in [0, 15]."""
+    return torch.cat([packed & 0xF, packed >> 4], dim=1)
+
+
+def sq_scores_plain(queries, codes, vmin, scale, *, metric):
+    """Plain PyTorch ``sq_scores``: (B, D) f32 x (N, D) int8 -> (B, N)."""
+    metric = DistanceMetric.parse(metric)
+    q_in, qsq = _prep_queries(queries, metric)
+    v = (codes.float() + 128.0) * (scale / 255.0)[None, :] + vmin[None, :]
+    return _epilogue(_bf16_cross(q_in, v), v, qsq, metric)
+
+
+def int4_scores_plain(queries, packed, vmin, scale, *, metric):
+    """Plain PyTorch ``int4_scores``: (B, 2W) f32 x (N, W) packed uint8
+    (halves layout) -> (B, N)."""
+    metric = DistanceMetric.parse(metric)
+    q_in, qsq = _prep_queries(queries, metric)
+    v = (unpack_int4(packed).float() * (scale / 15.0)[None, :]
+         + vmin[None, :])
+    return _epilogue(_bf16_cross(q_in, v), v, qsq, metric)
+
+
+def _check_cuda(name, dtype, t, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(entry, counter, q_in, qsq, codes, vmin, rscale, n, cols_arg,
+            metric):
+    b, de = q_in.shape
+    q_in = q_in.contiguous()
+    vmin = vmin.float().contiguous()
+    rscale = rscale.float().contiguous()
+    for name, t, shape in (("vmin", vmin, (de,)), ("rscale", rscale, (de,)),
+                           ("qsq", qsq, (b,))):
+        _check_cuda(name, torch.float32, t, shape)
+    if q_in.device != codes.device:
+        raise ValueError("queries and codes are on different devices")
+    out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
+    lib = build()
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            q_in.data_ptr(), codes.data_ptr(), vmin.data_ptr(),
+            rscale.data_ptr(), qsq.data_ptr(), out.data_ptr(),
+            b, n, cols_arg, _METRIC_CODE[metric], stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    LAUNCHES[counter] += 1
+    return out
+
+
+def sq_scores(queries: torch.Tensor, codes: torch.Tensor, vmin: torch.Tensor,
+              scale: torch.Tensor, *, metric) -> torch.Tensor:
+    """(B, D) f32 x (N, D) int8 -> (B, N) f32 scores (lower = closer).
+    Any B, N, D: no padding needed."""
+    metric = DistanceMetric.parse(metric)
+    if codes.device.type == "cpu":
+        return sq_scores_plain(queries, codes, vmin, scale, metric=metric)
+    n, d = codes.shape
+    _check_cuda("codes", torch.int8, codes, (n, d))
+    q_in, qsq = _prep_queries(queries, metric)
+    _check_cuda("queries", torch.float32, q_in.contiguous(),
+                (q_in.shape[0], d))
+    return _launch("fpv_sq_scores", "sq_scores", q_in, qsq, codes, vmin,
+                   scale.float() / 255.0, n, d, metric)
+
+
+def int4_scores(queries: torch.Tensor, packed: torch.Tensor,
+                vmin: torch.Tensor, scale: torch.Tensor, *,
+                metric) -> torch.Tensor:
+    """(B, 2W) f32 x (N, W) halves-packed uint8 -> (B, N) f32 scores.
+    vmin/scale span the 2W unpacked dims.  Any B, N, W."""
+    metric = DistanceMetric.parse(metric)
+    if packed.device.type == "cpu":
+        return int4_scores_plain(queries, packed, vmin, scale, metric=metric)
+    n, w = packed.shape
+    _check_cuda("packed", torch.uint8, packed, (n, w))
+    q_in, qsq = _prep_queries(queries, metric)
+    _check_cuda("queries", torch.float32, q_in.contiguous(),
+                (q_in.shape[0], 2 * w))
+    return _launch("fpv_int4_scores", "int4_scores", q_in, qsq, packed, vmin,
+                   scale.float() / 15.0, n, w, metric)

@@ -1,0 +1,157 @@
+"""The port's quantized-scan kernels (fastpyvectordb_tpu_torch/kernels/
+quant_kernels.py) against the JAX package's Pallas ``sq_scores`` /
+``int4_scores`` run in interpret mode, on the same seeded inputs.
+
+On the CPU the port's wrappers run their plain PyTorch versions (a CPU
+tensor is the only thing that selects them); the CUDA kernels themselves
+are held against those plain versions by the ``cuda``-marked test at the
+end, which runs only where a card is present."""
+
+import numpy as np
+import pytest
+import torch
+
+from fastpyvectordb_tpu.quant.int4 import Int4Quantizer as JInt4
+from fastpyvectordb_tpu.quant.scalar import ScalarQuantizer as JScalar
+from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+
+METRICS = ["cosine", "l2", "ip"]
+# (B, N, D): non-multiples of the Pallas tiles (B 8, N 1024, D 128), an odd
+# D for int4 (one phantom dim)
+SHAPES = [(5, 300, 40), (13, 1100, 41)]
+
+
+def _data(b, n, d, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            rng.standard_normal((b, d)).astype(np.float32))
+
+
+def _tol(want):
+    # both sides round the same f32 operands to bf16 and sum the exact
+    # products in f32; only the summation order differs.  Measured gap
+    # <= 7e-7 of max(|want|, 1) over these cases; the JAX tests allow 2e-2.
+    return 1e-5 * max(np.abs(want).max(), 1.0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("metric", METRICS)
+def test_sq_scores_matches_pallas(shape, metric):
+    b, n, d = shape
+    v, q = _data(b, n, d)
+    jq = JScalar().train(v)
+    codes = np.array(jq.encode(v))
+    # the Pallas kernel in interpret mode (mode="pallas" off the TPU)
+    want = np.asarray(jq.distances(q, codes, metric, mode="pallas"))
+    got = qk.sq_scores(torch.as_tensor(q), torch.as_tensor(codes),
+                       torch.as_tensor(np.array(jq.vmin)),
+                       torch.as_tensor(np.array(jq.scale)),
+                       metric=metric).numpy()
+    assert got.shape == want.shape == (b, n)
+    np.testing.assert_allclose(got, want, atol=_tol(want), rtol=0)
+    # top-1 consistency
+    assert (got.argmin(1) == want.argmin(1)).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("metric", METRICS)
+def test_int4_scores_matches_pallas(shape, metric):
+    b, n, d = shape
+    v, q = _data(b, n, d, seed=9)
+    jq = JInt4().train(v)
+    packed = np.array(jq.encode(v))
+    want = np.asarray(jq.distances(q, packed, metric, mode="pallas"))
+    qe = np.pad(q, ((0, 0), (0, jq._de - d)))   # phantom dim for odd D
+    got = qk.int4_scores(torch.as_tensor(qe), torch.as_tensor(packed),
+                         torch.as_tensor(np.array(jq.vmin)),
+                         torch.as_tensor(np.array(jq.scale)),
+                         metric=metric).numpy()
+    assert got.shape == want.shape == (b, n)
+    np.testing.assert_allclose(got, want, atol=_tol(want), rtol=0)
+    assert (got.argmin(1) == want.argmin(1)).all()
+
+
+def test_plain_versions_round_operands_to_bf16():
+    # the plain scan must not return bf16-rounded scores (torch.matmul of
+    # bf16 tensors would) and must round its operands (an f32 product
+    # would not): compare with a float64 product of the bf16 operands
+    v, q = _data(7, 50, 33, seed=3)
+    codes = torch.as_tensor(np.array(JScalar().train(v).encode(v)))
+    vmin, scale = torch.zeros(33), torch.full((33,), 2.0)
+    got = qk.sq_scores_plain(torch.as_tensor(q), codes, vmin, scale,
+                             metric="ip")
+    vv = ((codes.double() + 128.0) * (2.0 / 255.0)).float()
+    want = -(torch.as_tensor(q).bfloat16().double()
+             @ vv.bfloat16().double().T)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_cpu_tensors_use_plain_version_and_count_nothing():
+    v, q = _data(3, 20, 8)
+    jq = JScalar().train(v)
+    before = dict(qk.LAUNCHES)
+    qk.sq_scores(torch.as_tensor(q), torch.as_tensor(np.array(
+        jq.encode(v))), torch.as_tensor(np.array(jq.vmin)),
+        torch.as_tensor(np.array(jq.scale)), metric="l2")
+    assert qk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("fn", [qk.sq_scores, qk.int4_scores])
+def test_non_cpu_tensor_never_falls_back(fn):
+    # a tensor that is not on the CPU reaches the kernel path, which
+    # refuses what is not a CUDA tensor instead of computing elsewhere
+    dtype = torch.int8 if fn is qk.sq_scores else torch.uint8
+    codes = torch.empty((4, 8), dtype=dtype, device="meta")
+    de = 8 if fn is qk.sq_scores else 16
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(torch.zeros((2, de)), codes, torch.zeros(de), torch.ones(de),
+           metric="cosine")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_kernels_match_plain(metric):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    v, q = _data(37, 2100, 41)
+    for name, kern, plain in (("sq_scores", qk.sq_scores,
+                               qk.sq_scores_plain),
+                              ("int4_scores", qk.int4_scores,
+                               qk.int4_scores_plain)):
+        jq = (JScalar if name == "sq_scores" else JInt4)().train(v)
+        codes = torch.as_tensor(np.array(jq.encode(v))).cuda()
+        de = 2 * codes.shape[1] if name == "int4_scores" else 41
+        qc = torch.as_tensor(np.pad(q, ((0, 0), (0, de - 41)))).cuda()
+        vmin = torch.as_tensor(np.array(jq.vmin)).cuda()
+        scale = torch.as_tensor(np.array(jq.scale)).cuda()
+        n0 = qk.LAUNCHES[name]
+        got = kern(qc, codes, vmin, scale, metric=metric)
+        want = plain(qc, codes, vmin, scale, metric=metric)
+        torch.cuda.synchronize()
+        assert qk.LAUNCHES[name] == n0 + 1
+        # same bf16 operands, f32 sums in another order
+        tol = 1e-3 * max(want.abs().max().item(), 1.0)
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(3, 500, 41), (40, 501, 64),
+                                   (33, 512, 64)])
+def test_cuda_int8mm_pads_for_int_mm(b, n, d):
+    # torch._int_mm takes more than 16 rows and sizes that are multiples of
+    # 8: small batches, odd dims and odd row counts are padded on CUDA, and
+    # the integer products must equal the CPU's exactly
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from fastpyvectordb_tpu_torch.quant.scalar import ScalarQuantizer
+    v, q = _data(b, n, d, seed=13)
+    cpu = ScalarQuantizer(device="cpu").train(v)
+    gpu = ScalarQuantizer(device="cuda").train(v)
+    want = cpu.distances(q, cpu.encode(v), "l2", mode="int8mm")
+    got = gpu.distances(q, gpu.encode(v), "l2", mode="int8mm").cpu()
+    # same codes and integer products; the f32 epilogue may differ by
+    # rounding only
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-4)

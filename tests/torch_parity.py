@@ -1,0 +1,61 @@
+"""Shared helpers for the tests that hold the PyTorch port
+(fastpyvectordb_tpu_torch) against the JAX package on the same seeded
+numpy inputs."""
+
+from __future__ import annotations
+
+import numpy as np
+
+MASKED = 3.0e38
+
+
+def clustered(rng, n: int, d: int, n_centers: int = 16,
+              noise: float = 1.0, normalize: bool = True):
+    """bench.py's clustered construction in numpy: centers at 2x scale,
+    unit noise, rows normalized."""
+    centers = 2.0 * rng.standard_normal((n_centers, d)).astype(np.float32)
+    v = centers[rng.integers(0, n_centers, n)] + noise * rng.standard_normal(
+        (n, d)).astype(np.float32)
+    if normalize:
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v.astype(np.float32), centers
+
+
+def valid(vals) -> np.ndarray:
+    return np.asarray(vals) < MASKED * 0.5
+
+
+def assert_same_topk(want_d, want_r, got_d, got_r, rtol: float,
+                     atol: float = 1e-6) -> None:
+    """Two (B, k) top-k results agree: the same number of valid hits, the
+    same sorted scores within ``rtol``, and the same ids wherever a score
+    is not tied (within the tolerance) with another hit of its row —
+    ``lax.top_k`` orders ties by index, ``torch.topk`` promises no order."""
+    want_d, got_d = np.asarray(want_d, np.float64), np.asarray(got_d,
+                                                             np.float64)
+    want_r, got_r = np.asarray(want_r), np.asarray(got_r)
+    assert want_d.shape == got_d.shape
+    for b in range(want_d.shape[0]):
+        wv, gv = valid(want_d[b]), valid(got_d[b])
+        assert wv.sum() == gv.sum(), (b, wv.sum(), gv.sum())
+        wd, gd = want_d[b][wv], got_d[b][gv]
+        np.testing.assert_allclose(gd, wd, rtol=rtol, atol=atol)
+        tol = rtol * np.abs(wd) + atol
+        for i in range(wd.size):
+            near = np.abs(wd - wd[i]) <= 2 * tol[i] + 2 * tol
+            near[i] = False
+            if not near.any():
+                assert want_r[b][wv][i] == got_r[b][gv][i], (b, i)
+        # tied or not, the winners form the same set once the boundary
+        # value is excluded
+        if wd.size:
+            inner = wd < wd.max() - 2 * tol.max()
+            assert set(want_r[b][wv][inner].tolist()) <= set(
+                got_r[b][gv].tolist()), b
+
+
+def mean_overlap(a_rows, b_rows) -> float:
+    """Mean |a ∩ b| / k over the rows of two (B, k) id grids."""
+    a_rows, b_rows = np.asarray(a_rows), np.asarray(b_rows)
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / a.size
+                          for a, b in zip(a_rows, b_rows)]))
