@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``fastpyvectordb_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, then drives the
-main path through the public API at the size ``bench.py`` uses: a clustered
-1M x 768 cosine corpus made from a fixed seed, B=1024 query batches, k=10.
-Modes: exact f32 (the ground truth), filtered exact, exact bf16, int8
-two-stage and int4 two-stage ``search_quantized``, the int8 ``pallas`` mode
-of ``ScalarQuantizer.distances``, then save -> reload -> re-search.
+Builds the hand-written CUDA kernels from ``fastpyvectordb_tpu_torch/csrc``
+(one ``nvcc`` per source, started together), holds each against its plain
+PyTorch version on the card, then drives the main paths through the public
+API at the size ``bench.py`` uses: a clustered 1M x 768 cosine corpus made
+from a fixed seed, B=1024 query batches, k=10.  Modes: exact f32 (the
+ground truth), filtered exact, exact bf16, int8 two-stage and int4
+two-stage ``search_quantized``, the int8 ``pallas`` mode of
+``ScalarQuantizer.distances``; then the IVF path: ``build_ann("ivf")`` with
+int8 cells (``bench.py``'s ``ivf_grouped_int8_rr4``) and with bf16 cells,
+grouped and per-query dispatch, filtered IVF; then save -> reload ->
+re-search.  Each path's kernel launch counts are zeroed just before it and
+read just after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
 passed.  The last lines are a JSON object of per-kernel numbers, the card's
@@ -32,8 +37,11 @@ N_ROWS, DIMS, BATCH, K = 1_000_000, 768, 1024, 10
 N_CENTERS = 1024
 BLOCK_ROWS = 65_536           # the main-path kernel block (B=1024 x 65,536)
 KERNEL_RTOL = 1e-3            # same bf16 operands; only the f32 sum order
+I8_RTOL = 1e-5                # exact integer products; the f32 epilogue rounds
 RECALL_GATE = 0.95            # bench.py's gate
 QPS_BATCHES = 4               # distinct query batches per timed mode
+# bench.py's ivf_grouped_int8_rr4 recipe (bench.py:263-316)
+IVF_BUILD = {"nlist": 2048, "nprobe": 8, "iters": 6, "max_cell_factor": 1.25}
 
 
 def log(msg: str) -> None:
@@ -89,13 +97,17 @@ def phase_device():
 
 
 def phase_build():
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
     t0 = time.perf_counter()
-    qk.build()
-    log(f"[build] quant_scores.cu built in {time.perf_counter() - t0:.2f} s")
-    for line in qk.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    cuda_build.build_all(qk.SOURCE, ik.SOURCE)
+    log(f"[build] quant_scores.cu + grouped_cell_scores.cu built in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc each, concurrently)")
+    for src in (qk.SOURCE, ik.SOURCE):
+        for line in src.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {src.name}: {line.strip()}")
 
 
 def _kernel_pairs():
@@ -276,14 +288,11 @@ def phase_main_path(tmpdir: Path):
                               compute_dtype="bfloat16",
                               storage_dtype="bfloat16")
     bf.insert_batch(host, ids)
-    _, _, rows = bf.search_arrays(queries, k=K)
-    rec = recall_at_k(rows, truth)
+    _, _, bf_truth = bf.search_arrays(queries, k=K)
+    rec = recall_at_k(bf_truth, truth)
     qps = timed_qps(lambda qb: bf.search_arrays(qb, k=K), timing_batches)
     results["exact_bf16"] = {"recall": rec, "qps": qps}
     log(f"[main] exact bf16: recall@10 {rec:.4f}, QPS {qps:.1f}")
-    db.delete_collection("bf16")
-    del bf
-    torch.cuda.empty_cache()
 
     scans = {}
     for kind in ("int8", "int4"):
@@ -330,6 +339,15 @@ def phase_main_path(tmpdir: Path):
     launches = dict(qk.LAUNCHES)
     log(f"[main] kernel launches on the main path: {launches}")
 
+    ivf_kernels, ivf_launches = phase_ivf(col, bf, queries, tune_queries,
+                                          timing_batches, truth, bf_truth,
+                                          results)
+    kernels.update(ivf_kernels)
+    launches.update(ivf_launches)
+    db.delete_collection("bf16")
+    del bf
+    torch.cuda.empty_cache()
+
     for mode, r in results.items():
         if r["recall"] < RECALL_GATE:
             raise AssertionError(f"{mode}: recall@10 {r['recall']:.4f} < "
@@ -339,19 +357,222 @@ def phase_main_path(tmpdir: Path):
     t0 = time.perf_counter()
     db.save()
     _, _, rows_before = col.search_quantized_arrays(queries, k=K)
+    _, _, ivf_before = col.search_arrays(queries, k=K)   # the IVF index
     del col, db, scans, scan8, d_kern, d_mm
     torch.cuda.empty_cache()
     db2 = VectorDB(str(tmpdir), device="cuda")
     col2 = db2["main"]
-    _, _, rows_exact = col2.search_arrays(queries, k=K)
+    # build_ann made IVF the default route: the exact check asks for exact
+    _, _, rows_exact = col2.search_arrays(queries, k=K, exact=True)
     _, _, rows_q = col2.search_quantized_arrays(queries, k=K)
+    _, _, ivf_after = col2.search_arrays(queries, k=K)
     rec_e, rec_q = recall_at_k(rows_exact, truth), \
         recall_at_k(rows_q, rows_before)
     if rec_e < 0.999 or rec_q < 0.999 or col2.count() != N_ROWS:
         raise AssertionError(f"reload: exact {rec_e:.4f} int4 {rec_q:.4f}")
+    if col2.config.index != "ivf" or not np.array_equal(ivf_after,
+                                                        ivf_before):
+        raise AssertionError("reload: IVF ids differ from before the save")
     log(f"[persist] save + reload in {time.perf_counter() - t0:.1f} s: "
-        f"exact ids {rec_e:.4f}, int4 ids {rec_q:.4f} of before")
+        f"exact ids {rec_e:.4f}, int4 ids {rec_q:.4f} of before, IVF ids "
+        f"identical ({col2._ann.stats()['cell_dtype']} cells, nprobe "
+        f"{col2._ann.nprobe})")
     return kernels, launches, results
+
+
+def same_up_to_ties(d1, r1, d2, r2, tol: float = 1e-4) -> bool:
+    """Two (B, k) top-k results agree: the same sorted scores within
+    ``tol`` and the same ids, except among scores tied within ``tol``."""
+    import numpy as np
+    if np.abs(d1 - d2).max() > tol:
+        return False
+    return all(set(ra[a < a[-1] - tol].tolist()) <= set(rb.tolist())
+               and set(rb[b < b[-1] - tol].tolist()) <= set(ra.tolist())
+               for a, ra, b, rb in zip(d1, r1, d2, r2))
+
+
+def build_ivf(col, label: str, **extra):
+    """``build_ann("ivf")`` with ``bench.py``'s recipe, timed and logged."""
+    import torch
+    t0 = time.perf_counter()
+    col.build_ann("ivf", tune=False, **IVF_BUILD, **extra)
+    torch.cuda.synchronize()
+    st = col._ann.stats()
+    log(f"[ivf] {label}: build {time.perf_counter() - t0:.2f} s, stats {st}")
+    if st["cmax"] != 640:
+        raise AssertionError(f"{label}: cmax {st['cmax']}, expected 640")
+    return time.perf_counter() - t0
+
+
+def ivf_mode(col, label, queries, tune_queries, timing_batches, gate_truth,
+             truth):
+    """Search one B=1024 batch through the public API (grouped, since
+    1024 * nprobe >= nlist), gate recall@10 against ``gate_truth`` (tuning
+    nprobe on held-out queries if the recipe's 8 falls short), time QPS."""
+    _, _, rows = col.search_arrays(queries, k=K)
+    rec = recall_at_k(rows, gate_truth)
+    if rec < RECALL_GATE:
+        before = col._ann.nprobe
+        nprobe = col._ann.tune_nprobe(tune_queries[:256], RECALL_GATE)
+        log(f"[ivf] {label}: recall@10 {rec:.4f} at nprobe {before}; tuned "
+            f"on held-out queries -> nprobe {nprobe}")
+        _, _, rows = col.search_arrays(queries, k=K)
+        rec = recall_at_k(rows, gate_truth)
+    ann = col._ann
+    out = {"recall": rec, "recall_f32": recall_at_k(rows, truth),
+           "qps": timed_qps(lambda qb: col.search_arrays(qb, k=K),
+                            timing_batches),
+           "nprobe": ann.nprobe, "rerank": ann.rerank, "qcap": ann.last_qcap,
+           "dropped_pairs": ann.last_dropped}
+    log(f"[ivf] {label}: {out}")
+    return out
+
+
+def ivf_kernel_case(ann, queries, metric: str, nprobe: int):
+    """The grouped score stage's arguments exactly as the main path makes
+    them for one batch at ``nprobe``, from the index's own invert_pairs
+    output."""
+    import torch
+    from fastpyvectordb_tpu_torch.ann.ivf import ok_slot_masks
+    from fastpyvectordb_tpu_torch.ann.ivf_grouped import (
+        cell_score_args, grouped_qcap, invert_pairs, probe_cells, route)
+    nlist, cmax = ann.row_table.shape
+    qf = torch.as_tensor(queries, device="cuda")
+    qcap = grouped_qcap(qf.shape[0], nprobe, nlist, cmax)
+    pairs = invert_pairs(probe_cells(route(qf, ann.centroids, metric),
+                                     nprobe), nlist, qcap)
+    vmin, scale = ann._quant_params()
+    okc, _ = ok_slot_masks(ann)
+    _, args = cell_score_args(qf, pairs, ann.cells, okc, vmin, scale,
+                              ann._cell_norms_cached(), metric=metric,
+                              qcap=qcap)
+    return args
+
+
+def ragged_case(gen, nlist, u, n_uniq, qcap, cmax, d, int8, metric):
+    """Synthetic kernel operands at a ragged shape with a padding tail
+    (compact slots past n_uniq alias cell 0)."""
+    import torch
+    ids = torch.randperm(nlist, generator=gen, device="cuda")[:u].int()
+    ids[n_uniq:] = 0
+    cell_ids = torch.cat([torch.tensor([n_uniq], device="cuda",
+                                       dtype=torch.int32), ids])
+    rnd = dict(generator=gen, device="cuda")
+    if int8:
+        qblk = torch.randint(-127, 128, (u, qcap, d), dtype=torch.int8, **rnd)
+        cells = torch.randint(-127, 128, (nlist, cmax, d), dtype=torch.int8,
+                              **rnd)
+        norms = torch.rand((nlist, cmax), **rnd) * 50 + 1
+    else:
+        qblk = torch.randn((u, qcap, d), **rnd).bfloat16()
+        cells = torch.randn((nlist, cmax, d), **rnd).bfloat16()
+        norms = (cells.float() ** 2).sum(-1)
+    okf = (torch.rand((nlist, cmax), **rnd) > 0.2).float()
+    qstat = (torch.rand((u, qcap), **rnd) + 0.5) if metric != "ip" else \
+        torch.zeros((u, qcap), device="cuda")
+    if int8:
+        return (cell_ids, qblk, cells, norms, okf,
+                torch.rand((u, qcap), **rnd) * 1e-3,
+                torch.randn((u, qcap), **rnd), qstat)
+    return cell_ids, qblk, cells, norms, okf, qstat
+
+
+def check_ivf_kernel(name, kern, plain, args, metric, rtol):
+    import torch
+    n_uniq = int(args[0][0])
+    got = kern(*args, metric=metric)[:n_uniq]
+    want = plain(*args, metric=metric)[:n_uniq]
+    torch.cuda.synchronize()
+    live = want < 1e38
+    if not torch.equal(got < 1e38, live) or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}/{metric}: masked slots disagree")
+    err = (got - want).abs().max().item()
+    tol = rtol * max(want[live].abs().max().item(), 1.0)
+    if err > tol:
+        raise AssertionError(f"{name}/{metric}: max|kernel-plain| {err:.3g} "
+                             f"> {tol:.3g}")
+    return err, tol
+
+
+def phase_ivf(col, bf, queries, tune_queries, timing_batches, truth,
+              bf_truth, results):
+    """The IVF path: ``bench.py``'s ``ivf_grouped_int8_rr4`` on the f32
+    collection (int8 cells, kernel B3) and the same recipe with bf16 cells
+    on the bf16 collection (kernel B2), then per-query vs grouped dispatch,
+    filtered IVF, and each kernel against its plain version at the main
+    path's own operands and at ragged shapes."""
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch import Filter
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
+
+    build_i8 = build_ivf(col, "int8 cells", cell_dtype="int8")
+    build_bf = build_ivf(bf, "bf16 cells")
+
+    # -- the counted IVF path --------------------------------------------
+    ik.LAUNCHES.update({key: 0 for key in ik.LAUNCHES})
+    results["ivf_grouped_int8_rr4"] = {
+        **ivf_mode(col, "int8 grouped rr4", queries, tune_queries,
+                   timing_batches, truth, truth), "build_s": build_i8}
+    results["ivf_grouped_bf16"] = {
+        **ivf_mode(bf, "bf16 grouped", queries, tune_queries,
+                   timing_batches, bf_truth, truth), "build_s": build_bf}
+    for label, c in (("int8", col), ("bf16", bf)):
+        d_pq, r_pq = c._ann.search(queries[:8], K, grouped=False)
+        d_g, r_g = c._ann.search(queries[:8], K, grouped=True)
+        if not same_up_to_ties(d_pq, r_pq, d_g, r_g):
+            raise AssertionError(f"{label}: per-query and grouped dispatch "
+                                 "disagree on a B=8 batch")
+        log(f"[ivf] {label}: B=8 per-query vs grouped: same ids up to ties "
+            f"(max score gap {np.abs(d_pq - d_g).max():.3g})")
+    _, _, frows = col.search_arrays(queries[:64], k=K,
+                                    filter=Filter.eq("cat", 3))
+    if not (frows % 10 == 3).all():    # an empty slot (-1) fails too
+        raise AssertionError("filtered IVF: a hit does not match the filter")
+    log(f"[ivf] filtered IVF (cat == 3, 64 queries, overfetch "
+        f"{col.config.overfetch}): every hit matches")
+    launches = dict(ik.LAUNCHES)
+    log(f"[ivf] kernel launches on the IVF path: {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the IVF path ran without {name}")
+
+    # -- each kernel against its plain version ---------------------------
+    pairs = (("grouped_cell_scores", ik.grouped_cell_scores,
+              ik.grouped_cell_scores_plain, bf._ann, KERNEL_RTOL, False),
+             ("grouped_cell_scores_i8", ik.grouped_cell_scores_i8,
+              ik.grouped_cell_scores_i8_plain, col._ann, I8_RTOL, True))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, kern, plain, ann, rtol, int8 in pairs:
+        worst = 0.0
+        for metric in ("cosine", "l2", "ip"):
+            # the recipe's nprobe and the tuned one the path ran at
+            for nprobe in sorted({IVF_BUILD["nprobe"], ann.nprobe}):
+                args = ivf_kernel_case(ann, queries, metric, nprobe)
+                err, tol = check_ivf_kernel(name, kern, plain, args, metric,
+                                            rtol)
+                worst = max(worst, err)
+                u, qcap, d = args[1].shape
+                log(f"[kernels] {name} main path nprobe {nprobe} U={u} "
+                    f"n_uniq={int(args[0][0])} qcap={qcap} "
+                    f"cmax={ann.cells.shape[1]} D={d} {metric}: "
+                    f"max_abs_err {err:.3g} (tol {tol:.3g})")
+            # (nlist, U, n_uniq, qcap, cmax, D): every tile height
+            for shape in ((7, 5, 3, 8, 200, 41), (9, 6, 4, 8, 128, 130),
+                          (6, 4, 3, 16, 72, 96), (5, 4, 2, 40, 130, 64)):
+                rargs = ragged_case(gen, *shape, int8, metric)
+                err, tol = check_ivf_kernel(name, kern, plain, rargs, metric,
+                                            rtol)
+                log(f"[kernels] {name} {shape} {metric}: max_abs_err {err:.3g} "
+                    f"(tol {tol:.3g})")
+        args = ivf_kernel_case(ann, queries, "cosine", ann.nprobe)
+        ms = cuda_ms(lambda: kern(*args, metric="cosine"))
+        plain_ms = cuda_ms(lambda: plain(*args, metric="cosine"))
+        log(f"[kernels] {name} main path nprobe {ann.nprobe} cosine: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return out, launches
 
 
 def main() -> int:
@@ -364,14 +585,18 @@ def main() -> int:
     phase_build()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels, launches, results = phase_main_path(Path(tmp))
-    replaces = {"sq_scores": "fastpyvectordb_tpu/kernels/pallas_quant.py:81",
-                "int4_scores":
-                    "fastpyvectordb_tpu/kernels/pallas_quant.py:163"}
+    where = {  # kernel: (source, the TPU kernel it replaces)
+        "sq_scores": ("quant_scores.cu", "pallas_quant.py:81"),
+        "int4_scores": ("quant_scores.cu", "pallas_quant.py:163"),
+        "grouped_cell_scores": ("grouped_cell_scores.cu", "pallas_ivf.py:102"),
+        "grouped_cell_scores_i8": ("grouped_cell_scores.cu",
+                                   "pallas_ivf.py:234")}
     line = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "fastpyvectordb_tpu_torch/csrc/quant_scores.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         **kernels[name]} for name in ("sq_scores", "int4_scores")],
+         "source": f"fastpyvectordb_tpu_torch/csrc/{src}",
+         "replaces": f"fastpyvectordb_tpu/kernels/{tpu}",
+         "launches": launches[name], **kernels[name]}
+        for name, (src, tpu) in where.items()],
         "modes": results}
     print(json.dumps(line), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,6 +1,6 @@
-"""Core Collection: CRUD + exact and quantized search + filters + persistence
-(port of ``fastpyvectordb_tpu/core/collection.py``, the exact and int8/int4
-two-stage slice).
+"""Core Collection: CRUD + exact, quantized and IVF search + filters +
+persistence (port of ``fastpyvectordb_tpu/core/collection.py``: the exact,
+int8/int4 two-stage and IVF slices).
 
 Vectors live in a DeviceVectorStore on the collection's torch device
 (``device="cuda"`` unless the caller passes ``device="cpu"``).  Filters
@@ -10,8 +10,9 @@ Persistence is one FPVT container per collection, byte-compatible with the
 JAX package, and goes through ``state.collection_from_sections``.
 
 Entry points of the JAX Collection that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (ANN indexes, WAL
-durability, ``optimize``, ``prewarm``, streaming and sharded search).
+``NotImplementedError`` naming their ROADMAP item (the IVF-PQ and graph ANN
+kinds, WAL durability, ``optimize``, ``prewarm``, streaming and sharded
+search).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ from .types import CollectionConfig, DistanceMetric, SearchResult, as_f32_matrix
 
 STORE_FILE = "collection.fpvt"
 
-_ANN_ITEM = "ANN indexes (ROADMAP queue A item 5: IVF and grouped IVF)"
+# ANN kinds of the JAX package not ported yet, with their ROADMAP item
+ANN_NOT_PORTED = {"ivfpq": "IVF-PQ (ROADMAP queue A item 9)",
+                  "graph": "graph ANN (ROADMAP queue A item 16)"}
 
 
 def _not_ported(what: str, item: str):
@@ -70,6 +73,7 @@ class Collection:
         self._ids_arr: Optional[np.ndarray] = None
         self._ids_arr_version = -1
         self._quantized = None  # optional quantized scan (quant/scan.py)
+        self._ann = None  # optional ANN index (ann/ivf.py)
         self._rebuild_thread: Optional[threading.Thread] = None
         self._row_epoch = 0  # bumped by row renumbering (compact/load)
         self._serving_mode: Optional[str] = None
@@ -290,14 +294,47 @@ class Collection:
 
     def _search_rows(self, q, k: int, filter: Optional[Filter],
                      exact: Optional[bool]):
-        """Shared dispatch (quantized serving default | exact masked scan)
-        -> (dists, rows).  With no ANN index ported, ``exact=False`` runs
-        the exact scan, as the JAX package does when no index is built.
-        Caller holds the lock and has handled the empty store."""
-        if (exact is None and self._serving_mode == "quantized"
-                and self._quantized is not None):
-            return self._quantized_rows(_host(q), k, None, filter)
+        """Shared dispatch: (ANN | exact masked scan | installed serving
+        default) -> (dists, rows).  Caller holds the lock and has handled
+        the empty store."""
+        if exact is None and self._serving_mode is not None:
+            # a serving default saved by the JAX package's optimize();
+            # explicit exact=True/False always overrides
+            if (self._serving_mode == "quantized"
+                    and self._quantized is not None):
+                return self._quantized_rows(_host(q), k, None, filter)
+            if self._serving_mode == "exact":
+                exact = True
+            elif self._serving_mode == "ann":
+                exact = False
+        use_ann = self._ann is not None and (
+            exact is False or (exact is None and self.config.index != "flat"))
         mask = self._filter_mask(filter)
+        if (use_ann and mask is not None and exact is None
+                and int(mask.sum()) <= max(1024, 32 * k)):
+            # highly selective filter: the exact masked scan over the few
+            # matching rows is both faster and exact, where a filtered ANN
+            # pass would collapse recall
+            use_ann = False
+        if use_ann:
+            if self._index_rebuild_due(self._ann) and not self._ann.stale:
+                if self.config.rebuild == "inline":
+                    self._ann.mark_stale()  # rebuilt inside .search()
+                else:
+                    # this search (and every one until the swap) serves
+                    # through the stale index + exact tail merge
+                    self._spawn_rebuild("ann")
+            q = _host(q)
+            dists, rows = self._ann.search(
+                q, k, mask=mask,
+                overfetch=self.config.overfetch if filter is not None else 1)
+            built = self._ann._built_count
+            if self._store.count > built:
+                # rows appended after the build: exact-scan them and merge
+                # (disjoint row spaces, no dedup needed)
+                td, tr = self._tail_exact(q, k, mask, built)
+                dists, rows = topk_mod.merge_topk_host(dists, rows, td, tr, k)
+            return dists, rows
         return self._store.search(
             q, k, self.config.metric, extra_mask=mask,
             compute_dtype=self.config.compute_dtype)
@@ -404,42 +441,59 @@ class Collection:
             # appended rows are served by the exact tail merge, deletes by
             # the validity mask; a threshold-triggered rebuild amortizes
             return
+        if self._ann is not None:
+            self._ann.mark_stale()
         self._quantized = None
 
     def _index_rebuild_due(self, snapshot) -> bool:
-        """True when a snapshot built over ``built_count`` rows has drifted
-        (tail growth or mass deletes) enough that a rebuild beats serving
-        through the merge path."""
-        built_count = snapshot.built_count
+        """True when a snapshot or index built over its built count of
+        rows has drifted (tail growth or mass deletes) enough that a
+        rebuild beats serving through the merge path."""
+        built_count = getattr(snapshot, "_built_count",
+                              getattr(snapshot, "built_count", 0))
+        built_live = getattr(snapshot, "_built_n_valid",
+                             getattr(snapshot, "built_n_valid", built_count))
         tail = self._store.count - built_count
         return (tail > max(built_count // 4, 4096)
-                or self._store.n_valid * 2 < snapshot.built_n_valid)
+                or self._store.n_valid * 2 < built_live)
 
-    def _spawn_rebuild(self) -> None:
-        """Background quantized rebuild (one in flight per collection):
-        build off-lock with the live snapshot's recipe, then swap it in,
-        guarded against row renumbering and against the snapshot having
-        been replaced meanwhile.  Caller holds the lock."""
+    def _spawn_rebuild(self, kind: str) -> None:
+        """Background rebuild of the ANN index (``kind="ann"``) or the
+        quantized snapshot (one in flight per collection): build off-lock
+        with the live object's recipe, then swap it in, guarded against
+        row renumbering and against the object having been replaced
+        meanwhile.  Caller holds the lock."""
         t = self._rebuild_thread
         if t is not None and t.is_alive():
             return
         epoch = self._row_epoch
-        snap = self._quantized
+        if kind == "ann":
+            snap = self._ann
+
+            def work():
+                new = snap.rebuilt()
+                with self._lock:
+                    if self._ann is snap and self._row_epoch == epoch:
+                        self._ann = new
+        else:
+            snap = self._quantized
+
+            def work():
+                from ..quant.scan import QuantizedScan
+                new = QuantizedScan.build(self, kind=snap.kind)
+                new.default_rerank = snap.default_rerank  # tuned depth
+                with self._lock:
+                    if self._quantized is snap and self._row_epoch == epoch:
+                        self._quantized = new
 
         def runner():
-            from ..quant.scan import QuantizedScan
             try:
-                new = QuantizedScan.build(self, kind=snap.kind)
+                work()
             except Exception as e:  # noqa: BLE001 - background best-effort
                 import sys
-                print(f"background quantized rebuild failed "
+                print(f"background {kind} rebuild failed "
                       f"({type(e).__name__}: {e}); serving continues on "
-                      "the stale snapshot + tail merge", file=sys.stderr)
-                return
-            new.default_rerank = snap.default_rerank  # tuned depth survives
-            with self._lock:
-                if self._quantized is snap and self._row_epoch == epoch:
-                    self._quantized = new
+                      "the stale index + tail merge", file=sys.stderr)
 
         t = threading.Thread(target=runner, daemon=True,
                              name=f"fpv-rebuild-{self.config.name}")
@@ -482,8 +536,50 @@ class Collection:
         idx = live[np.linspace(0, live.size - 1, take).astype(np.int64)]
         return self._store.get_rows(idx.astype(np.int64))
 
-    def build_ann(self, *args, **kwargs):
-        raise _not_ported("build_ann", _ANN_ITEM)
+    def build_ann(self, kind: str = "ivf", tune: Optional[bool] = None,
+                  tune_target: float = 0.95, tune_queries: int = 32,
+                  **kwargs) -> None:
+        """Build an approximate index: ``"ivf"`` (ann/ivf.py), whose large
+        batches go through the grouped cell-score kernels.  ``"ivfpq"`` and
+        ``"graph"`` are not ported yet.
+
+        By default (``tune=None``) corpora >= 4096 rows with no explicit
+        ``nprobe`` tune it against the exact scan on sampled corpus rows
+        right after the build (the JAX package's behaviour; those
+        self-queries find themselves, so pass held-out queries to
+        ``tune_nprobe`` where recall matters).  ``tune=False`` skips it."""
+        if kind in ANN_NOT_PORTED:
+            raise _not_ported(f"build_ann(kind={kind!r})",
+                              ANN_NOT_PORTED[kind])
+        if kind != "ivf":
+            raise ValueError(f"unknown ANN kind {kind!r}")
+        from ..ann.ivf import IVFIndex
+        with self._lock:
+            self._ann = IVFIndex.build(self, **kwargs)
+            # drift-triggered rebuilds reuse the caller's build parameters
+            self._ann._build_kwargs = dict(kwargs)
+            self.config.index = kind
+            # an explicit nprobe is the caller's decision: auto-tune never
+            # overrides it; only tune=True re-tunes past it
+            if tune is None:
+                tune = (kwargs.get("nprobe") is None
+                        and self._store.n_valid >= self._AUTOTUNE_MIN_ROWS)
+            if tune:
+                qs = self._sample_live_queries(tune_queries)
+                if qs is not None:
+                    self._ann.tune_nprobe(qs, target_recall=tune_target)
+
+    def set_search_params(self, **params) -> None:
+        """Set the ANN index's recall/latency knobs at runtime (IVF:
+        ``nprobe``, ``rerank``)."""
+        with self._lock:
+            if self._ann is None:
+                raise ValueError("no ANN index built; call build_ann first")
+            for key, value in params.items():
+                if not hasattr(self._ann, key):
+                    raise ValueError(
+                        f"{type(self._ann).__name__} has no parameter {key!r}")
+                setattr(self._ann, key, int(value))
 
     def optimize(self, *args, **kwargs):
         raise _not_ported("optimize",
@@ -546,7 +642,7 @@ class Collection:
                                            tune=False)
                 self._quantized.default_rerank = tuned
             else:
-                self._spawn_rebuild()
+                self._spawn_rebuild("quantized")
         mask = self._filter_mask(filter)
         if rerank is None:
             rerank = self._quantized.default_rerank
@@ -629,6 +725,10 @@ class Collection:
         meta = {"config": self.config.to_dict(), "kind": "collection"}
         if self._serving_mode is not None:
             meta["serving_mode"] = self._serving_mode
+        if self._ann is not None and not self._ann.stale:
+            ann_sections, ann_meta = self._ann.export_sections()
+            sections.update(ann_sections)
+            meta["ann"] = ann_meta
         if self._quantized is not None:
             q_sections, q_meta = self._quantized.export_sections()
             sections.update(q_sections)

@@ -19,66 +19,18 @@ ragged B, N and D edges, so the TPU's 8/128/1024 padding helpers
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
 from ..core.types import DistanceMetric
+from .cuda_build import CudaSource, I, P
 
 LAUNCHES = {"sq_scores": 0, "int4_scores": 0}
 
-_METRIC_CODE = {DistanceMetric.COSINE: 0, DistanceMetric.L2: 1,
-                DistanceMetric.DOT: 2}
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "quant_scores.cu"
-# <repo>/build/kernels (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-build_log = ""
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
-                           "the CUDA kernels cannot be built")
-    return path
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/quant_scores.cu`` (once per source hash) and load it.
-    Raises with the compiler's output if the build fails."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libquant_scores_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for fn in (lib.fpv_sq_scores, lib.fpv_int4_scores):
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+METRIC_CODE = {DistanceMetric.COSINE: 0, DistanceMetric.L2: 1,
+               DistanceMetric.DOT: 2}
+_ARGS = [P] * 6 + [I] * 4 + [P]
+SOURCE = CudaSource("quant_scores", {"fpv_sq_scores": _ARGS,
+                                     "fpv_int4_scores": _ARGS})
 
 
 def _prep_queries(queries: torch.Tensor, metric: DistanceMetric):
@@ -134,7 +86,7 @@ def int4_scores_plain(queries, packed, vmin, scale, *, metric):
     return _epilogue(_bf16_cross(q_in, v), v, qsq, metric)
 
 
-def _check_cuda(name, dtype, t, shape):
+def check_cuda(name, dtype, t, shape):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -154,17 +106,17 @@ def _launch(entry, counter, q_in, qsq, codes, vmin, rscale, n, cols_arg,
     rscale = rscale.float().contiguous()
     for name, t, shape in (("vmin", vmin, (de,)), ("rscale", rscale, (de,)),
                            ("qsq", qsq, (b,))):
-        _check_cuda(name, torch.float32, t, shape)
+        check_cuda(name, torch.float32, t, shape)
     if q_in.device != codes.device:
         raise ValueError("queries and codes are on different devices")
     out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
-    lib = build()
+    lib = SOURCE.load()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(
             q_in.data_ptr(), codes.data_ptr(), vmin.data_ptr(),
             rscale.data_ptr(), qsq.data_ptr(), out.data_ptr(),
-            b, n, cols_arg, _METRIC_CODE[metric], stream)
+            b, n, cols_arg, METRIC_CODE[metric], stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES[counter] += 1
@@ -179,10 +131,10 @@ def sq_scores(queries: torch.Tensor, codes: torch.Tensor, vmin: torch.Tensor,
     if codes.device.type == "cpu":
         return sq_scores_plain(queries, codes, vmin, scale, metric=metric)
     n, d = codes.shape
-    _check_cuda("codes", torch.int8, codes, (n, d))
+    check_cuda("codes", torch.int8, codes, (n, d))
     q_in, qsq = _prep_queries(queries, metric)
-    _check_cuda("queries", torch.float32, q_in.contiguous(),
-                (q_in.shape[0], d))
+    check_cuda("queries", torch.float32, q_in.contiguous(),
+               (q_in.shape[0], d))
     return _launch("fpv_sq_scores", "sq_scores", q_in, qsq, codes, vmin,
                    scale.float() / 255.0, n, d, metric)
 
@@ -196,9 +148,9 @@ def int4_scores(queries: torch.Tensor, packed: torch.Tensor,
     if packed.device.type == "cpu":
         return int4_scores_plain(queries, packed, vmin, scale, metric=metric)
     n, w = packed.shape
-    _check_cuda("packed", torch.uint8, packed, (n, w))
+    check_cuda("packed", torch.uint8, packed, (n, w))
     q_in, qsq = _prep_queries(queries, metric)
-    _check_cuda("queries", torch.float32, q_in.contiguous(),
-                (q_in.shape[0], 2 * w))
+    check_cuda("queries", torch.float32, q_in.contiguous(),
+               (q_in.shape[0], 2 * w))
     return _launch("fpv_int4_scores", "int4_scores", q_in, qsq, packed, vmin,
                    scale.float() / 15.0, n, w, metric)

@@ -99,10 +99,13 @@ def _rerank_body(queries, cand_vecs, cand_rows, cand_ok, metric, k,
     return vals, torch.take_along_dim(cand_rows, pos, dim=1)
 
 
-def _gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype):
-    safe = torch.clamp(crows, max=vectors.shape[0] - 1)  # padded rows clip
-    return _rerank_body(q, vectors[safe], safe, cvals < float(MASKED) * 0.5,
-                        metric, k, rerank_dtype)
+def gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype):
+    """Gather the candidates' rows and re-rank them exactly.  Rows of -1
+    (padding of an IVF row table) gather row 0 and are masked: torch
+    indexing would wrap -1 to the last row."""
+    safe = torch.clamp(crows, min=0, max=vectors.shape[0] - 1).long()
+    ok = (cvals < float(MASKED) * 0.5) & (crows >= 0)
+    return _rerank_body(q, vectors[safe], crows, ok, metric, k, rerank_dtype)
 
 
 def _int8_two_stage(q, codes, vmin, scale, vsq, rinv, vectors, mask, *,
@@ -113,7 +116,7 @@ def _int8_two_stage(q, codes, vmin, scale, vsq, rinv, vectors, mask, *,
     s = _distances_int8_matmul(q, codes, vmin, scale, vsq, rinv,
                                metric=metric)
     cvals, crows = _masked_candidates(s, mask, c=c)
-    return _gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
+    return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
 
 
 def _int4_two_stage(q, codes, vmin, scale, vectors, mask, *,
@@ -126,7 +129,7 @@ def _int4_two_stage(q, codes, vmin, scale, vectors, mask, *,
     s = int4_scores(_pad_queries(q, 2 * codes.shape[1]), codes, vmin, scale,
                     metric=metric)
     cvals, crows = _masked_candidates(s, mask, c=c)
-    return _gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
+    return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
 
 
 class QuantizedScan:

@@ -2,8 +2,9 @@
 
 A collection's state is plain numpy arrays, lists and JSON meta: the
 ``vectors`` / ``valid`` arrays of ``DeviceVectorStore.export_arrays()``, the
-``quant_*`` sections of ``QuantizedScan.export_sections()``, and the ``ids``
-/ ``metadata`` / ``config`` sections a collection saves.  Both packages
+``ann_*`` sections of ``IVFIndex.export_sections()``, the ``quant_*``
+sections of ``QuantizedScan.export_sections()``, and the ``ids`` /
+``metadata`` / ``config`` sections a collection saves.  Both packages
 write exactly that into their FPVT containers, so one function turns it
 into a port ``Collection`` — for a file on disk (``Collection._load``) and
 for state handed over in memory (``collection_from_sections``).
@@ -13,20 +14,25 @@ from __future__ import annotations
 
 import numpy as np
 
-from .core.collection import Collection
+from .core.collection import ANN_NOT_PORTED, Collection
 from .core.store import DeviceVectorStore
 from .core.types import CollectionConfig
 
 
 def restore_into(col: Collection, meta: dict, sections: dict) -> None:
-    """Replace ``col``'s rows, ids, metadata and quantized snapshot with
-    the given state, on ``col.device``."""
-    if meta.get("ann"):
-        # dropping the index silently would change what search() serves
+    """Replace ``col``'s rows, ids, metadata, ANN index and quantized
+    snapshot with the given state, on ``col.device``.  An ``"ivf"`` index
+    (centroids, row table, overflow rows, nprobe, rerank, int8
+    ``vmin``/``scale``) is carried across through ``IVFIndex.from_sections``;
+    other ANN kinds are not ported and raise rather than be dropped, which
+    would change what ``search()`` serves."""
+    ann_meta = meta.get("ann")
+    if ann_meta and ann_meta.get("kind") != "ivf":
+        kind = ann_meta.get("kind")
         raise NotImplementedError(
-            "this collection holds an ANN index section "
-            f"(kind={meta['ann'].get('kind')!r}); ANN indexes are not "
-            "ported to the PyTorch package yet (ROADMAP queue A item 5)")
+            f"this collection holds an ANN index section (kind={kind!r}), "
+            "which is not ported to the PyTorch package yet: "
+            f"{ANN_NOT_PORTED.get(kind, 'see ROADMAP queue A')}")
     cfg = CollectionConfig.from_dict(meta["config"])
     col.config = cfg
     valid = np.asarray(sections["valid"], dtype=bool)
@@ -40,6 +46,12 @@ def restore_into(col: Collection, meta: dict, sections: dict) -> None:
     col._row_epoch += 1  # row space replaced wholesale
     col._bump()
     col._serving_mode = meta.get("serving_mode")
+    col._ann = None
+    if ann_meta:
+        from .ann.ivf import IVFIndex
+        col._ann = IVFIndex.from_sections(
+            col, {k: v for k, v in sections.items() if k.startswith("ann_")},
+            ann_meta)
     q_meta = meta.get("quantized")
     if q_meta:
         from .quant.scan import QuantizedScan

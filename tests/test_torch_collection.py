@@ -251,14 +251,16 @@ def test_collection_from_sections():
 
 
 def test_unported_paths_raise_and_keep_ann_data(tmp_path):
+    # an IVF-PQ section (not ported) refuses to load rather than be dropped
     (jdb, jc), _, _, _ = _pair("l2", tmp_path / "j")
-    jc.build_ann(nlist=8, nprobe=2, iters=2, tune=False)
+    jc.build_ann("ivfpq", nlist=8, nprobe=2, iters=2, m=8, pq_k=16,
+                 pq_iters=2, tune=False)
     jdb.save()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.VectorDB(tmp_path / "j", device="cpu")
     tc = T.VectorDB(None, device="cpu").create_collection("x", dimensions=4)
     tc.insert(np.ones(4, np.float32), "a")
-    for call in (tc.build_ann, tc.optimize, tc.prewarm,
+    for call in (lambda: tc.build_ann(kind="ivfpq"), tc.optimize, tc.prewarm,
                  tc.search_arrays_stream, tc.as_sharded_searcher):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
