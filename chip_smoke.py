@@ -12,9 +12,12 @@ ground truth), filtered exact, exact bf16, int8 two-stage and int4
 two-stage ``search_quantized``, the int8 ``pallas`` mode of
 ``ScalarQuantizer.distances``; then the IVF path: ``build_ann("ivf")`` with
 int8 cells (``bench.py``'s ``ivf_grouped_int8_rr4``) and with bf16 cells,
-grouped and per-query dispatch, filtered IVF; then save -> reload ->
-re-search.  Each path's kernel launch counts are zeroed just before it and
-read just after.
+grouped and per-query dispatch, filtered IVF; then, on a third collection of
+the same rows, the binary two-stage scan (``enable_quantized_scan("binary")``
+and its ``rerank=1`` coarse path) and IVF-PQ (``build_ann("ivfpq")`` at its
+defaults, grouped and per-query, filtered); the pq scan kind once on a
+65,536-row collection; then save -> reload -> re-search.  Each path's kernel
+launch counts are zeroed just before it and read just after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
 passed.  The last lines are a JSON object of per-kernel numbers, the card's
@@ -38,7 +41,11 @@ N_CENTERS = 1024
 BLOCK_ROWS = 65_536           # the main-path kernel block (B=1024 x 65,536)
 KERNEL_RTOL = 1e-3            # same bf16 operands; only the f32 sum order
 I8_RTOL = 1e-5                # exact integer products; the f32 epilogue rounds
+PQ_RTOL = 1e-5                # B7: the same bf16 entries summed in another order
 RECALL_GATE = 0.95            # bench.py's gate
+# the binary and IVF-PQ tuners aim a point above the gate: a depth that just
+# clears it on the tuning queries can miss it on the evaluation batch
+TUNE_TARGET = 0.96
 QPS_BATCHES = 4               # distinct query batches per timed mode
 # bench.py's ivf_grouped_int8_rr4 recipe (bench.py:263-316)
 IVF_BUILD = {"nlist": 2048, "nprobe": 8, "iters": 6, "max_cell_factor": 1.25}
@@ -98,13 +105,15 @@ def phase_device():
 
 def phase_build():
     from fastpyvectordb_tpu_torch.kernels import cuda_build
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
     from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    sources = (qk.SOURCE, ik.SOURCE, ik.SOURCE_PQ, hk.SOURCE)
     t0 = time.perf_counter()
-    cuda_build.build_all(qk.SOURCE, ik.SOURCE)
-    log(f"[build] quant_scores.cu + grouped_cell_scores.cu built in "
-        f"{time.perf_counter() - t0:.2f} s (one nvcc each, concurrently)")
-    for src in (qk.SOURCE, ik.SOURCE):
+    cuda_build.build_all(*sources)
+    log(f"[build] {', '.join(src.name + '.cu' for src in sources)} built "
+        f"in {time.perf_counter() - t0:.2f} s (one nvcc each, concurrently)")
+    for src in sources:
         for line in src.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {src.name}: {line.strip()}")
@@ -187,6 +196,53 @@ def phase_kernels(queries=None, block=None):
     return out
 
 
+def check_hamming(name, kern, plain, qc, codes):
+    import torch
+    got, want = kern(qc, codes), plain(qc, codes)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel != plain at B={qc.shape[0]} "
+                             f"N={codes.shape[0]} W={codes.shape[1]}")
+
+
+def phase_hamming_kernels(queries, block):
+    """B5 / B6 against their plain versions, bit for bit (integer counts):
+    ragged shapes, then the main path's block (codes encoded from the
+    corpus block).  Returns per-kernel {max_abs_err, ms, plain_ms}."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    from fastpyvectordb_tpu_torch.quant.binary import BinaryQuantizer
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pairs = (("hamming_mxu_scores", hk.hamming_mxu_scores,
+              hk.hamming_mxu_scores_plain),
+             ("hamming_scores", hk.hamming_scores, hk.hamming_scores_plain))
+    for b in (1, 13, 70):
+        for n in (64, 1000, 3001):
+            # 1500 dims (W=47) stage a second, shorter chunk of words
+            for d in (16, 41, 70, 130, 1500):
+                rows = torch.randn((n, d), generator=gen, device="cuda")
+                bq = BinaryQuantizer(device="cuda").train(rows)
+                qc = bq.encode(torch.randn((b, d), generator=gen,
+                                           device="cuda"))
+                for name, kern, plain in pairs:
+                    check_hamming(name, kern, plain, qc, bq.encode(rows))
+    log("[kernels] hamming_mxu_scores, hamming_scores at 45 ragged shapes "
+        "(B 1/13/70 x N 64/1000/3001 x D 16/41/70/130/1500): equal to plain")
+    bq = BinaryQuantizer(device="cuda").train(block)
+    codes, qc = bq.encode(block), bq.encode(queries)
+    out = {}
+    for name, kern, plain in pairs:
+        check_hamming(name, kern, plain, qc, codes)
+        ms = cuda_ms(lambda: kern(qc, codes))
+        plain_ms = cuda_ms(lambda: plain(qc, codes))
+        log(f"[kernels] {name} B={BATCH} N={BLOCK_ROWS} D={DIMS} "
+            f"(W={codes.shape[1]}): equal to plain; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    hk.LAUNCHES.update({key: 0 for key in hk.LAUNCHES})
+    return out
+
+
 def host_scores(q, vecs, chunk: int = 100_000):
     """Cosine distances in float64 on the host: an independent reference."""
     import numpy as np
@@ -242,6 +298,8 @@ def phase_main_path(tmpdir: Path):
         f"{time.perf_counter() - t0:.1f} s")
 
     kernels = phase_kernels(torch.as_tensor(queries, device="cuda"), block)
+    kernels.update(phase_hamming_kernels(
+        torch.as_tensor(queries, device="cuda"), block))
     del block
 
     # -- the counted main path ------------------------------------------
@@ -348,8 +406,19 @@ def phase_main_path(tmpdir: Path):
     del bf
     torch.cuda.empty_cache()
 
+    # -- the compressed tiers, on a third collection of the same rows ------
+    cc = db.create_collection("compressed", dimensions=DIMS, metric="cosine")
+    cc.insert_batch(host, ids, metas)
+    launches.update(phase_binary(cc, queries, tune_queries, timing_batches,
+                                 truth, results))
+    pq_kernel, pq_launches = phase_ivfpq(cc, queries, tune_queries,
+                                         timing_batches, truth, results)
+    kernels.update(pq_kernel)
+    launches.update(pq_launches)
+    phase_pq_scan(db, host, queries, timing_batches, results)
+
     for mode, r in results.items():
-        if r["recall"] < RECALL_GATE:
+        if r.get("gated", True) and r["recall"] < RECALL_GATE:
             raise AssertionError(f"{mode}: recall@10 {r['recall']:.4f} < "
                                  f"{RECALL_GATE}")
 
@@ -358,10 +427,12 @@ def phase_main_path(tmpdir: Path):
     db.save()
     _, _, rows_before = col.search_quantized_arrays(queries, k=K)
     _, _, ivf_before = col.search_arrays(queries, k=K)   # the IVF index
-    del col, db, scans, scan8, d_kern, d_mm
+    _, _, bin_before = cc.search_quantized_arrays(queries, k=K)
+    _, _, pq_before = cc.search_arrays(queries, k=K)     # the IVF-PQ index
+    del col, cc, db, scans, scan8, d_kern, d_mm
     torch.cuda.empty_cache()
     db2 = VectorDB(str(tmpdir), device="cuda")
-    col2 = db2["main"]
+    col2, cc2 = db2["main"], db2["compressed"]
     # build_ann made IVF the default route: the exact check asks for exact
     _, _, rows_exact = col2.search_arrays(queries, k=K, exact=True)
     _, _, rows_q = col2.search_quantized_arrays(queries, k=K)
@@ -373,10 +444,20 @@ def phase_main_path(tmpdir: Path):
     if col2.config.index != "ivf" or not np.array_equal(ivf_after,
                                                         ivf_before):
         raise AssertionError("reload: IVF ids differ from before the save")
+    _, _, bin_after = cc2.search_quantized_arrays(queries, k=K)
+    _, _, pq_after = cc2.search_arrays(queries, k=K)
+    rec_b = recall_at_k(bin_after, bin_before)
+    if cc2._quantized.kind != "binary" or rec_b < 0.999:
+        raise AssertionError(f"reload: binary ids {rec_b:.4f} of before")
+    if cc2.config.index != "ivfpq" or not np.array_equal(pq_after,
+                                                         pq_before):
+        raise AssertionError("reload: IVF-PQ ids differ from before the save")
     log(f"[persist] save + reload in {time.perf_counter() - t0:.1f} s: "
         f"exact ids {rec_e:.4f}, int4 ids {rec_q:.4f} of before, IVF ids "
         f"identical ({col2._ann.stats()['cell_dtype']} cells, nprobe "
-        f"{col2._ann.nprobe})")
+        f"{col2._ann.nprobe}); compressed: binary ids {rec_b:.4f} of "
+        f"before (rerank {cc2._quantized.default_rerank}), IVF-PQ ids "
+        f"identical (nprobe {cc2._ann.nprobe}, rerank {cc2._ann.rerank})")
     return kernels, launches, results
 
 
@@ -517,6 +598,14 @@ def phase_ivf(col, bf, queries, tune_queries, timing_batches, truth,
     results["ivf_grouped_bf16"] = {
         **ivf_mode(bf, "bf16 grouped", queries, tune_queries,
                    timing_batches, bf_truth, truth), "build_s": build_bf}
+    # read before the checks below, which force a route of their own
+    launches = {name: ik.LAUNCHES[name]
+                for name in ("grouped_cell_scores", "grouped_cell_scores_i8")}
+    log(f"[ivf] kernel launches on the IVF path (B={BATCH} batches through "
+        f"search_arrays): {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the IVF path ran without {name}")
     for label, c in (("int8", col), ("bf16", bf)):
         d_pq, r_pq = c._ann.search(queries[:8], K, grouped=False)
         d_g, r_g = c._ann.search(queries[:8], K, grouped=True)
@@ -531,11 +620,6 @@ def phase_ivf(col, bf, queries, tune_queries, timing_batches, truth,
         raise AssertionError("filtered IVF: a hit does not match the filter")
     log(f"[ivf] filtered IVF (cat == 3, 64 queries, overfetch "
         f"{col.config.overfetch}): every hit matches")
-    launches = dict(ik.LAUNCHES)
-    log(f"[ivf] kernel launches on the IVF path: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the IVF path ran without {name}")
 
     # -- each kernel against its plain version ---------------------------
     pairs = (("grouped_cell_scores", ik.grouped_cell_scores,
@@ -575,6 +659,228 @@ def phase_ivf(col, bf, queries, tune_queries, timing_batches, truth,
     return out, launches
 
 
+def phase_binary(cc, queries, tune_queries, timing_batches, truth,
+                 results):
+    """The binary two-stage path (kernel B5 over the snapshot's packed
+    codes) with its re-rank depth tuned on held-out queries, then the
+    ``rerank=1`` coarse path (kernel B6).  Returns the path's launches."""
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+
+    t0 = time.perf_counter()
+    scan = cc.enable_quantized_scan("binary", tune=False)
+    rerank = scan.tune_rerank(tune_queries[:256], target_recall=TUNE_TARGET)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hk.LAUNCHES.update({key: 0 for key in hk.LAUNCHES})
+    _, _, rows = cc.search_quantized_arrays(queries, k=K)
+    rec = recall_at_k(rows, truth)
+    qps = timed_qps(lambda qb: cc.search_quantized_arrays(qb, k=K),
+                    timing_batches)
+    _, d1, r1 = cc.search_quantized_arrays(queries, k=K, rerank=1)
+    # the coarse scores are Hamming counts: integers in [0, D], ascending
+    if (not np.array_equal(d1, np.round(d1)) or d1.min() < 0
+            or d1.max() > DIMS or not (np.diff(d1, axis=1) >= 0).all()):
+        raise AssertionError("binary rerank=1: scores are not sorted counts")
+    launches = dict(hk.LAUNCHES)
+    log(f"[binary] kernel launches on the binary path: {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the binary path ran without {name}")
+    results["binary_2stage"] = {
+        "recall": rec, "qps": qps, "rerank": rerank, "build_s": build_s,
+        "recall_rerank1": recall_at_k(r1, truth)}
+    log(f"[binary] build + tune {build_s:.1f} s: "
+        f"{results['binary_2stage']}")
+    # the first stage alone at the path's own shape (B=1024 x 1M rows)
+    qc = scan.quantizer.encode(torch.as_tensor(queries, device="cuda"))
+    ms = cuda_ms(lambda: hk.hamming_mxu_scores(qc, scan.codes), reps=3)
+    log(f"[kernels] hamming_mxu_scores B={BATCH} N={scan.codes.shape[0]} "
+        f"W={scan.codes.shape[1]}: kernel {ms:.4f} ms")
+    return launches
+
+
+def ivfpq_kernel_case(ann, queries, nprobe: int):
+    """``grouped_cell_scores_pq``'s operands exactly as the main path makes
+    them for one batch at ``nprobe``."""
+    import torch
+    from fastpyvectordb_tpu_torch.ann.ivf_grouped import (grouped_qcap,
+                                                          probe_cells)
+    from fastpyvectordb_tpu_torch.ann.ivfpq import (_pq_route,
+                                                    pq_cell_score_args)
+    nlist, cmax = ann.row_table.shape
+    qf = torch.as_tensor(queries, device="cuda")
+    _, route = _pq_route(qf, ann.centroids, ann._collection.config.metric)
+    _, args = pq_cell_score_args(
+        qf, probe_cells(-route, nprobe), ann._codes_t_cached(),
+        ann.codebooks, qcap=grouped_qcap(qf.shape[0], nprobe, nlist, cmax))
+    return args
+
+
+def pq_ragged_case(gen, nlist, u, n_uniq, qcap, cmax, m, kk, b):
+    """Synthetic B7 operands at a ragged shape, with empty slots and a
+    padding tail (compact slots past n_uniq alias cell 0)."""
+    import torch
+    rnd = dict(generator=gen, device="cuda")
+    ids = torch.randperm(nlist, **rnd)[:u].int()
+    ids[n_uniq:] = 0
+    cell_ids = torch.cat([torch.tensor([n_uniq], device="cuda",
+                                       dtype=torch.int32), ids])
+    lut = torch.randn((b, m * kk), **rnd).bfloat16()
+    load = torch.randint(1, qcap + 1, (u, 1), **rnd)
+    qslot = torch.where(torch.arange(qcap, device="cuda")[None, :] < load,
+                        torch.randint(0, b, (u, qcap), **rnd), -1).int()
+    codes_t = torch.randint(0, kk, (nlist, m, cmax), dtype=torch.uint8,
+                            **rnd)
+    return cell_ids, lut, qslot, codes_t
+
+
+def check_pq_kernel(args):
+    """B7 against its plain version on the live slots of the compact cells
+    (the kernel leaves the rest unwritten)."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
+    got = ik.grouped_cell_scores_pq(*args)
+    want = ik.grouped_cell_scores_pq_plain(*args)
+    torch.cuda.synchronize()
+    n = int(args[0][0])
+    live = args[2][:n] >= 0
+    g, w = got[:n][live], want[:n][live]
+    if not torch.isfinite(g).all():
+        raise AssertionError("grouped_cell_scores_pq: non-finite output")
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    tol = PQ_RTOL * max(w.abs().max().item() if w.numel() else 0.0, 1.0)
+    if err > tol:
+        raise AssertionError(f"grouped_cell_scores_pq: max|kernel-plain| "
+                             f"{err:.3g} > {tol:.3g}")
+    return err, tol
+
+
+def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
+    """IVF-PQ at its defaults (K=256, M=D/8, cell factor 1.5, spill 8,
+    re-rank 16), nprobe and re-rank tuned jointly on held-out queries; the
+    grouped dispatch runs kernel B7.  Then per-query vs grouped, a filtered
+    search, and B7 against its plain version at the main path's own
+    operands and at ragged shapes."""
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch import Filter
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
+
+    t0 = time.perf_counter()
+    cc.build_ann("ivfpq", tune=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ann = cc._ann
+    st = ann.stats()
+    log(f"[ivfpq] build {build_s:.2f} s, stats {st}")
+    if (st["nlist"], st["m"], st["pq_k"], st["cmax"]) != (2000, 96, 256,
+                                                          768):
+        raise AssertionError(f"ivfpq: unexpected layout {st}")
+    recipe_nprobe = ann.nprobe
+    t0 = time.perf_counter()
+    # the joint tuner doubles nprobe to its limit before it deepens the
+    # re-rank; on this corpus the PQ ordering, not the routing, limits
+    # recall (within a cluster the codes' error exceeds the score spread:
+    # recall@10 0.751 / 0.900 / 0.986 at rerank 16 / 64 / 128 for every
+    # nprobe from 32 to 2000), so nprobe stops at 2x the default and the
+    # re-rank may go past the tuner's default cap of 64
+    nprobe, rerank, tune_rec = ann.tune(tune_queries[:256],
+                                        target_recall=TUNE_TARGET,
+                                        max_nprobe=2 * recipe_nprobe,
+                                        max_rerank=256)
+    log(f"[ivfpq] tuned on held-out queries in "
+        f"{time.perf_counter() - t0:.1f} s: nprobe {recipe_nprobe} -> "
+        f"{nprobe}, rerank {rerank}, recall@10 {tune_rec:.4f}")
+
+    # -- the counted IVF-PQ path -----------------------------------------
+    ik.LAUNCHES.update({key: 0 for key in ik.LAUNCHES})
+    _, _, rows = cc.search_arrays(queries, k=K)
+    out = {"recall": recall_at_k(rows, truth),
+           "qps": timed_qps(lambda qb: cc.search_arrays(qb, k=K),
+                            timing_batches),
+           "nprobe": ann.nprobe, "rerank": ann.rerank, "qcap": ann.last_qcap,
+           "dropped_pairs": ann.last_dropped, "build_s": build_s,
+           "overflow_rows": st["overflow_rows"],
+           "codes_bytes": st["codes_bytes"]}
+    # read before the checks below, which force a route of their own
+    launches = {"grouped_cell_scores_pq": ik.LAUNCHES["grouped_cell_scores_pq"]}
+    log(f"[ivfpq] kernel launches on the IVF-PQ path (B={BATCH} batches "
+        f"through search_arrays): {launches}")
+    if launches["grouped_cell_scores_pq"] == 0:
+        raise AssertionError("the IVF-PQ path ran without "
+                             "grouped_cell_scores_pq")
+    d_pq, r_pq = ann.search(queries[:8], K, grouped=False)
+    d_g, r_g = ann.search(queries[:8], K, grouped=True)
+    if ann.last_dropped == 0 and not same_up_to_ties(d_pq, r_pq, d_g, r_g):
+        raise AssertionError("ivfpq: per-query and grouped dispatch "
+                             "disagree on a B=8 batch")
+    log(f"[ivfpq] B=8 per-query vs grouped: same ids up to ties (max score "
+        f"gap {np.abs(d_pq - d_g).max():.3g})")
+    _, _, frows = cc.search_arrays(queries[:64], k=K,
+                                   filter=Filter.eq("cat", 3))
+    if not (frows % 10 == 3).all():
+        raise AssertionError("filtered IVF-PQ: a hit does not match")
+    log("[ivfpq] filtered IVF-PQ (cat == 3, 64 queries): every hit matches")
+    results["ivfpq_grouped"] = out
+    log(f"[ivfpq] {out}")
+
+    # -- the kernel against its plain version -----------------------------
+    worst = 0.0
+    for npb in sorted({recipe_nprobe, ann.nprobe}):
+        args = ivfpq_kernel_case(ann, queries, npb)
+        err, tol = check_pq_kernel(args)
+        worst = max(worst, err)
+        u, qcap = args[2].shape
+        log(f"[kernels] grouped_cell_scores_pq main path nprobe {npb} U={u} "
+            f"n_uniq={int(args[0][0])} qcap={qcap} cmax={args[3].shape[2]} "
+            f"M={args[3].shape[1]} K={args[1].shape[1] // args[3].shape[1]}:"
+            f" max_abs_err {err:.3g} (tol {tol:.3g})")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    # (nlist, U, n_uniq, qcap, cmax, M, K, B)
+    for shape in ((7, 5, 3, 8, 72, 1, 16, 20), (9, 6, 4, 40, 768, 8, 256, 50),
+                  (6, 4, 3, 8, 200, 96, 256, 30),
+                  (5, 4, 2, 40, 130, 8, 16, 10),
+                  (4, 3, 3, 16, 1100, 12, 64, 9)):
+        err, tol = check_pq_kernel(pq_ragged_case(gen, *shape))
+        worst = max(worst, err)
+        log(f"[kernels] grouped_cell_scores_pq {shape}: max_abs_err "
+            f"{err:.3g} (tol {tol:.3g})")
+    args = ivfpq_kernel_case(ann, queries, ann.nprobe)
+    ms = cuda_ms(lambda: ik.grouped_cell_scores_pq(*args))
+    plain_ms = cuda_ms(lambda: ik.grouped_cell_scores_pq_plain(*args),
+                       reps=3)
+    log(f"[kernels] grouped_cell_scores_pq main path nprobe {ann.nprobe}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return ({"grouped_cell_scores_pq": {"max_abs_err": worst, "ms": ms,
+                                        "plain_ms": plain_ms}}, launches)
+
+
+def phase_pq_scan(db, host, queries, timing_batches, results):
+    """The pq scan kind once, at its defaults (m=8, K=256), on the first
+    65,536 rows.  Recall against that collection's exact scan and QPS are
+    printed with no gate: m=8 is a compression setting, not a serving
+    recipe, and the path runs no hand kernel."""
+    import torch
+    pc = db.create_collection("pq", dimensions=DIMS, metric="cosine")
+    pc.insert_batch(host[:BLOCK_ROWS], [f"p{i}" for i in range(BLOCK_ROWS)])
+    _, _, truth = pc.search_arrays(queries, k=K)
+    t0 = time.perf_counter()
+    scan = pc.enable_quantized_scan("pq", tune=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _, _, rows = pc.search_quantized_arrays(queries, k=K)
+    results["pq_2stage_65536"] = {
+        "recall": recall_at_k(rows, truth),
+        "qps": timed_qps(lambda qb: pc.search_quantized_arrays(qb, k=K),
+                         timing_batches),
+        "rerank": scan.default_rerank, "build_s": build_s, "gated": False}
+    log(f"[pq] pq scan kind on {BLOCK_ROWS} rows (no gate): "
+        f"{results['pq_2stage_65536']}")
+    db.delete_collection("pq")
+
+
 def main() -> int:
     import torch  # noqa: F401 - a missing torch fails here, with no result
     if not (ROOT / "fastpyvectordb_tpu_torch").is_dir():
@@ -590,7 +896,11 @@ def main() -> int:
         "int4_scores": ("quant_scores.cu", "pallas_quant.py:163"),
         "grouped_cell_scores": ("grouped_cell_scores.cu", "pallas_ivf.py:102"),
         "grouped_cell_scores_i8": ("grouped_cell_scores.cu",
-                                   "pallas_ivf.py:234")}
+                                   "pallas_ivf.py:234"),
+        "hamming_mxu_scores": ("hamming_scores.cu", "pallas_quant.py:241"),
+        "hamming_scores": ("hamming_scores.cu", "pallas_quant.py:292"),
+        "grouped_cell_scores_pq": ("grouped_cell_scores_pq.cu",
+                                   "pallas_ivf.py:179")}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"fastpyvectordb_tpu_torch/csrc/{src}",

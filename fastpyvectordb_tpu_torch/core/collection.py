@@ -1,6 +1,6 @@
 """Core Collection: CRUD + exact, quantized and IVF search + filters +
-persistence (port of ``fastpyvectordb_tpu/core/collection.py``: the exact,
-int8/int4 two-stage and IVF slices).
+persistence (port of ``fastpyvectordb_tpu/core/collection.py``: the exact
+scan, the int8 / int4 / binary / pq two-stage scans, IVF and IVF-PQ).
 
 Vectors live in a DeviceVectorStore on the collection's torch device
 (``device="cuda"`` unless the caller passes ``device="cpu"``).  Filters
@@ -10,9 +10,8 @@ Persistence is one FPVT container per collection, byte-compatible with the
 JAX package, and goes through ``state.collection_from_sections``.
 
 Entry points of the JAX Collection that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (the IVF-PQ and graph ANN
-kinds, WAL durability, ``optimize``, ``prewarm``, streaming and sharded
-search).
+``NotImplementedError`` naming their ROADMAP item (the graph ANN kind, WAL
+durability, ``optimize``, ``prewarm``, streaming and sharded search).
 """
 
 from __future__ import annotations
@@ -34,8 +33,9 @@ from .types import CollectionConfig, DistanceMetric, SearchResult, as_f32_matrix
 STORE_FILE = "collection.fpvt"
 
 # ANN kinds of the JAX package not ported yet, with their ROADMAP item
-ANN_NOT_PORTED = {"ivfpq": "IVF-PQ (ROADMAP queue A item 9)",
-                  "graph": "graph ANN (ROADMAP queue A item 16)"}
+ANN_NOT_PORTED = {"graph": "graph ANN (ROADMAP queue A item 16)"}
+# the recall knobs of each ANN kind: an explicit one turns auto-tune off
+_ANN_KNOBS = {"ivf": ("nprobe",), "ivfpq": ("nprobe", "rerank")}
 
 
 def _not_ported(what: str, item: str):
@@ -73,7 +73,8 @@ class Collection:
         self._ids_arr: Optional[np.ndarray] = None
         self._ids_arr_version = -1
         self._quantized = None  # optional quantized scan (quant/scan.py)
-        self._ann = None  # optional ANN index (ann/ivf.py)
+        self._quant_kwargs: dict = {}  # its build recipe, for rebuilds
+        self._ann = None  # optional ANN index (ann/ivf.py, ann/ivfpq.py)
         self._rebuild_thread: Optional[threading.Thread] = None
         self._row_epoch = 0  # bumped by row renumbering (compact/load)
         self._serving_mode: Optional[str] = None
@@ -477,10 +478,11 @@ class Collection:
                         self._ann = new
         else:
             snap = self._quantized
+            kw = dict(self._quant_kwargs)
 
             def work():
                 from ..quant.scan import QuantizedScan
-                new = QuantizedScan.build(self, kind=snap.kind)
+                new = QuantizedScan.build(self, kind=snap.kind, **kw)
                 new.default_rerank = snap.default_rerank  # tuned depth
                 with self._lock:
                     if self._quantized is snap and self._row_epoch == epoch:
@@ -540,38 +542,49 @@ class Collection:
                   tune_target: float = 0.95, tune_queries: int = 32,
                   **kwargs) -> None:
         """Build an approximate index: ``"ivf"`` (ann/ivf.py), whose large
-        batches go through the grouped cell-score kernels.  ``"ivfpq"`` and
-        ``"graph"`` are not ported yet.
+        batches go through the grouped cell-score kernels, or ``"ivfpq"``
+        (ann/ivfpq.py, PQ-coded residual cells, the grouped ADC kernel).
+        ``"graph"`` is not ported yet.
 
-        By default (``tune=None``) corpora >= 4096 rows with no explicit
-        ``nprobe`` tune it against the exact scan on sampled corpus rows
-        right after the build (the JAX package's behaviour; those
-        self-queries find themselves, so pass held-out queries to
-        ``tune_nprobe`` where recall matters).  ``tune=False`` skips it."""
+        By default (``tune=None``) corpora >= 4096 rows with none of the
+        kind's recall knobs given (ivf: ``nprobe``; ivfpq: ``nprobe`` or
+        ``rerank``) tune them against the exact scan on sampled corpus rows
+        right after the build — ``tune_nprobe`` for IVF, the joint
+        ``tune`` for IVF-PQ (the JAX package's behaviour; those
+        self-queries find themselves, so pass held-out queries to the
+        index's tuner where recall matters).  ``tune=False`` skips it."""
         if kind in ANN_NOT_PORTED:
             raise _not_ported(f"build_ann(kind={kind!r})",
                               ANN_NOT_PORTED[kind])
-        if kind != "ivf":
+        if kind not in _ANN_KNOBS:
             raise ValueError(f"unknown ANN kind {kind!r}")
-        from ..ann.ivf import IVFIndex
+        if kind == "ivf":
+            from ..ann.ivf import IVFIndex as index_cls
+        else:
+            from ..ann.ivfpq import IVFPQIndex as index_cls
         with self._lock:
-            self._ann = IVFIndex.build(self, **kwargs)
+            self._ann = index_cls.build(self, **kwargs)
             # drift-triggered rebuilds reuse the caller's build parameters
             self._ann._build_kwargs = dict(kwargs)
             self.config.index = kind
-            # an explicit nprobe is the caller's decision: auto-tune never
+            # an explicit knob is the caller's decision: auto-tune never
             # overrides it; only tune=True re-tunes past it
             if tune is None:
-                tune = (kwargs.get("nprobe") is None
+                explicit = any(kwargs.get(kb) is not None
+                               for kb in _ANN_KNOBS[kind])
+                tune = (not explicit
                         and self._store.n_valid >= self._AUTOTUNE_MIN_ROWS)
             if tune:
                 qs = self._sample_live_queries(tune_queries)
                 if qs is not None:
-                    self._ann.tune_nprobe(qs, target_recall=tune_target)
+                    if kind == "ivf":
+                        self._ann.tune_nprobe(qs, target_recall=tune_target)
+                    else:
+                        self._ann.tune(qs, target_recall=tune_target)
 
     def set_search_params(self, **params) -> None:
-        """Set the ANN index's recall/latency knobs at runtime (IVF:
-        ``nprobe``, ``rerank``)."""
+        """Set the ANN index's recall/latency knobs at runtime (IVF and
+        IVF-PQ: ``nprobe``, ``rerank``)."""
         with self._lock:
             if self._ann is None:
                 raise ValueError("no ANN index built; call build_ann first")
@@ -589,13 +602,17 @@ class Collection:
     def enable_quantized_scan(self, kind: str = "int8",
                               tune: Optional[bool] = None,
                               tune_target: float = 0.95,
-                              tune_queries: int = 32):
-        """Build the two-stage quantized scan snapshot ("int8" or "int4").
-        By default corpora >= 4096 rows tune the re-rank depth on sampled
-        self-queries (``tune_rerank``); ``tune=False`` skips it."""
+                              tune_queries: int = 32, **kwargs):
+        """Build the two-stage quantized scan snapshot ("int8", "int4",
+        "binary" or "pq").  ``kwargs`` go to the quantizer's training
+        (binary ``method=``; pq ``m=``, ``k=``, ...) and are kept for the
+        threshold rebuilds.  By default corpora >= 4096 rows tune the
+        re-rank depth on sampled self-queries (``tune_rerank``);
+        ``tune=False`` skips it."""
         from ..quant.scan import QuantizedScan
         with self._lock:
-            self._quantized = QuantizedScan.build(self, kind=kind)
+            self._quantized = QuantizedScan.build(self, kind=kind, **kwargs)
+            self._quant_kwargs = dict(kwargs)
             if tune is None:
                 tune = self._store.n_valid >= self._AUTOTUNE_MIN_ROWS
             if tune:
@@ -639,7 +656,7 @@ class Collection:
             if self.config.rebuild == "inline":
                 tuned = self._quantized.default_rerank
                 self.enable_quantized_scan(kind=self._quantized.kind,
-                                           tune=False)
+                                           tune=False, **self._quant_kwargs)
                 self._quantized.default_rerank = tuned
             else:
                 self._spawn_rebuild("quantized")

@@ -1,13 +1,15 @@
 """Grouped IVF cell-score kernels (port of
 ``fastpyvectordb_tpu/kernels/pallas_ivf.py`` ``grouped_cell_scores`` /
-``grouped_cell_scores_i8``).
+``grouped_cell_scores_i8`` / ``grouped_cell_scores_pq``).
 
 Each entry has two versions:
 
-  * the hand-written Hopper kernel in ``csrc/grouped_cell_scores.cu``, built
-    with ``nvcc`` at first use and bound with ``ctypes``;
+  * the hand-written Hopper kernel in ``csrc/grouped_cell_scores.cu`` (B2,
+    B3) or ``csrc/grouped_cell_scores_pq.cu`` (B7), built with ``nvcc`` at
+    first use and bound with ``ctypes``;
   * a plain PyTorch version of the same math (``*_plain``): gather the
-    compact cells, one batched product, the metric epilogue.
+    compact cells, one batched product, the metric epilogue (B2, B3); a
+    table lookup per subspace, summed in order (B7).
 
 Both take the compact layout of ``ann/ivf_grouped.py:invert_pairs``:
 ``cell_ids`` is ``[n_uniq, compact -> cell ids...]`` (U + 1 entries) and the
@@ -30,12 +32,18 @@ from .cuda_build import CudaSource, I, P
 from .distances import MASKED
 from .quant_kernels import METRIC_CODE, check_cuda
 
-LAUNCHES = {"grouped_cell_scores": 0, "grouped_cell_scores_i8": 0}
+LAUNCHES = {"grouped_cell_scores": 0, "grouped_cell_scores_i8": 0,
+            "grouped_cell_scores_pq": 0}
 
 SOURCE = CudaSource("grouped_cell_scores", {
     "fpv_grouped_cell_scores": [P] * 7 + [I] * 5 + [P],
     "fpv_grouped_cell_scores_i8": [P] * 9 + [I] * 5 + [P],
 })
+SOURCE_PQ = CudaSource("grouped_cell_scores_pq", {
+    "fpv_grouped_cell_scores_pq": [P] * 5 + [I] * 5 + [P],
+})
+# bytes of gathered f32 tables per chunk of compact cells (plain B7)
+_PQ_PLAIN_BYTES = 256 << 20
 
 # torch >= 2.8 has an f32-output bf16 batched product on CUDA
 _BMM_OUT_DTYPE = "dtype" in torch.ops.aten.bmm.overloads()
@@ -158,3 +166,68 @@ def grouped_cell_scores_i8(cell_ids: torch.Tensor, qblk: torch.Tensor,
                    cell_ids, qblk, cells, norms, okf,
                    (("sscale", sscale), ("sconst", sconst)), qstat, metric,
                    torch.int8)
+
+
+def grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t):
+    """Plain ``grouped_cell_scores_pq``: for each chunk of compact cells,
+    gather the slots' bf16 tables (empty slots, -1, read query 0) and add
+    ``lut[q, m*K + codes_t[cell, m, c]]`` over m in order, in f32 — the
+    order the kernel sums in."""
+    u, qcap = qslot.shape
+    m, cmax = codes_t.shape[1], codes_t.shape[2]
+    kk = lut.shape[1] // m
+    out = torch.empty((u, qcap, cmax), dtype=torch.float32,
+                      device=codes_t.device)
+    slots = torch.clamp(qslot, min=0).long()
+    cells = cell_ids[1:1 + u].long()
+    cu = max(1, _PQ_PLAIN_BYTES // max(qcap * m * kk * 4, 1))
+    for s in range(0, u, cu):
+        sl = slots[s:s + cu]
+        n = sl.shape[0]
+        lutq = lut[sl.reshape(-1)].float().reshape(n, qcap, m * kk)
+        codes = codes_t[cells[s:s + cu]].long()          # (n, M, cmax)
+        acc = torch.zeros((n, qcap, cmax), dtype=torch.float32,
+                          device=codes_t.device)
+        for j in range(m):
+            idx = codes[:, j:j + 1, :].expand(n, qcap, cmax)
+            acc += torch.gather(lutq[:, :, j * kk:(j + 1) * kk], 2, idx)
+        out[s:s + cu] = acc
+    return out
+
+
+def grouped_cell_scores_pq(cell_ids: torch.Tensor, lut: torch.Tensor,
+                           qslot: torch.Tensor,
+                           codes_t: torch.Tensor) -> torch.Tensor:
+    """(U+1,) i32 compact cell list, (B, M*K) bf16 per-query ADC tables,
+    (U, qcap) slot table (query id, -1 = empty), (nlist, M, cmax) uint8
+    transposed cell codes -> (U, qcap, cmax) f32 ADC sums.  Rows past
+    ``cell_ids[0]`` and empty slots are unspecified.  Any shape, K <= 256."""
+    if codes_t.device.type == "cpu":
+        return grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t)
+    u, qcap = qslot.shape
+    nlist, m, cmax = codes_t.shape
+    b, mk = lut.shape
+    if mk % m:
+        raise ValueError(f"lut width {mk} is not a multiple of M={m}")
+    check_cuda("codes_t", torch.uint8, codes_t, (nlist, m, cmax))
+    check_cuda("lut", torch.bfloat16, lut, (b, mk))
+    check_cuda("qslot", torch.int32, qslot, (u, qcap))
+    check_cuda("cell_ids", torch.int32, cell_ids, (u + 1,))
+    for t in (lut, qslot, cell_ids):
+        if t.device != codes_t.device:
+            raise ValueError("grouped_cell_scores_pq: operands on different "
+                             "devices")
+    out = torch.empty((u, qcap, cmax), dtype=torch.float32,
+                      device=codes_t.device)
+    lib = SOURCE_PQ.load()
+    with torch.cuda.device(codes_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fpv_grouped_cell_scores_pq(
+            cell_ids.data_ptr(), lut.data_ptr(), qslot.data_ptr(),
+            codes_t.data_ptr(), out.data_ptr(), u, qcap, cmax, m, mk // m,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped_cell_scores_pq launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["grouped_cell_scores_pq"] += 1
+    return out

@@ -1,15 +1,19 @@
 """Two-stage quantized scan: compressed first pass -> exact re-rank (port of
-``fastpyvectordb_tpu/quant/scan.py``, the int8 and int4 kinds).
+``fastpyvectordb_tpu/quant/scan.py``: the int8, int4, binary and pq kinds).
 
   stage 1: quantized distances over all rows (int8: folded s8 x s8 product;
-           int4: the ``int4_scores`` kernel) + masked top-c candidates;
+           int4: the ``int4_scores`` kernel; binary: the packed-Hamming
+           ``hamming_mxu_scores`` kernel; pq: the ADC table scan) + masked
+           top-c candidates;
   stage 2: gather the candidates' rows and apply the exact metric, then
            the final top-k.
 
 Candidate selection is exact ``torch.topk`` in f32: the TPU's approximate
 top-k (``lax.approx_max_k``) has no CUDA counterpart, and the JAX package
-itself selects exactly off the TPU.  ``binary`` and ``pq`` snapshots are
-not ported yet (ROADMAP queue A items 7 and 9).
+itself selects exactly off the TPU.  int8, int4 and binary run the JAX
+package's fused single-dispatch pipelines on every device, re-ranking in
+the collection's ``compute_dtype``; pq runs its general path (f32
+re-rank), as the JAX package does everywhere.
 """
 
 from __future__ import annotations
@@ -21,29 +25,30 @@ import torch
 
 from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, smallest_k
+from ..kernels.hamming_kernels import hamming_mxu_scores, hamming_scores
 from ..kernels.quant_kernels import int4_scores
+from ..kernels.topk import masked_top_k
+from ..utils import next_pow2
+from .binary import BinaryQuantizer, _encode as _binary_encode
+from .binary import from_uint32, to_uint32
 from .int4 import Int4Quantizer, _pad_queries
+from .product import ProductQuantizer, _encode as _pq_encode
 from .scalar import ScalarQuantizer, _distances_int8_matmul, as_tensor
 
-_NOT_PORTED = {
-    "binary": "binary two-stage scan (ROADMAP queue A item 7)",
-    "pq": "PQ two-stage scan (ROADMAP queue A item 9)",
-}
 _KIND_ALIASES = {"int8": "int8", "sq": "int8", "scalar": "int8",
                  "int4": "int4", "sq4": "int4",
                  "binary": "binary", "bq": "binary", "hamming": "binary",
                  "pq": "pq", "product": "pq"}
+# the kinds whose two-stage search is one fused pipeline (the JAX package
+# ships their queries in bf16 under bf16 serving)
+_FUSED = ("int8", "int4", "binary")
+_PQ_ENCODE_ROWS = 65536
 
 
 def _canonical_kind(kind: str) -> str:
     if kind not in _KIND_ALIASES:
         raise ValueError(f"unknown quantized scan kind {kind!r}")
-    kind = _KIND_ALIASES[kind]
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"kind={kind!r} is not ported to the PyTorch package yet: "
-            f"{_NOT_PORTED[kind]}")
-    return kind
+    return _KIND_ALIASES[kind]
 
 
 def _masked_candidates(s, mask, *, c: int):
@@ -69,6 +74,25 @@ def _int4_coarse_topk(q, codes, vmin, scale, mask, *,
     s = int4_scores(_pad_queries(q, 2 * codes.shape[1]), codes, vmin, scale,
                     metric=metric)
     return _masked_candidates(s, mask, c=k)
+
+
+def _hamming_coarse_topk(qcodes, codes, mask, *, k: int,
+                         chunk: int = 262_144):
+    """Packed-Hamming scan (``hamming_scores``) + masked top-k, chunked over
+    N with a per-chunk top-k and a final merge: bounded memory at any
+    corpus size.  Returns (Hamming counts as f32, rows)."""
+    n = codes.shape[0]
+    vals, rows = [], []
+    for s in range(0, n, chunk):
+        sc = hamming_scores(qcodes, codes[s:s + chunk]).float()
+        if mask is not None:
+            sc.masked_fill_(~mask[None, s:s + chunk], float(MASKED))
+        v, i = smallest_k(sc, min(k, sc.shape[1]))
+        vals.append(v)
+        rows.append(i + s)
+    v, i = torch.cat(vals, dim=1), torch.cat(rows, dim=1)
+    top, pos = smallest_k(v, min(k, v.shape[1]))
+    return top, torch.take_along_dim(i, pos, dim=1)
 
 
 def _rerank_body(queries, cand_vecs, cand_rows, cand_ok, metric, k,
@@ -132,15 +156,48 @@ def _int4_two_stage(q, codes, vmin, scale, vectors, mask, *,
     return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
 
 
+def _binary_two_stage(q, thresholds, codes, vectors, mask, *, dims: int,
+                      metric: DistanceMetric, k: int, c: int,
+                      rerank_dtype: str):
+    """The whole binary two-stage search: query sign bits -> Hamming scan
+    (the ``hamming_mxu_scores`` kernel on CUDA, over the snapshot's own
+    row-major words) -> top-c candidates -> gather -> exact re-rank."""
+    s = hamming_mxu_scores(_binary_encode(q, thresholds, dims=dims), codes)
+    cvals, crows = _masked_candidates(s, mask, c=c)
+    return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
+
+
+def _pq_encode_rows(vectors: torch.Tensor, codebooks: torch.Tensor, *,
+                    normalize: bool) -> torch.Tensor:
+    """PQ codes of a whole (capacity) buffer, encoded on its device a block
+    of rows at a time; cosine snapshots encode the normalized rows."""
+    out = torch.empty((vectors.shape[0], codebooks.shape[0]),
+                      dtype=torch.uint8, device=vectors.device)
+    for s in range(0, vectors.shape[0], _PQ_ENCODE_ROWS):
+        x = vectors[s:s + _PQ_ENCODE_ROWS].float()
+        if normalize:
+            x = x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True),
+                                min=1e-30)
+        out[s:s + _PQ_ENCODE_ROWS] = _pq_encode(x, codebooks)
+    return out
+
+
+def _normalized_host(q: np.ndarray) -> np.ndarray:
+    """Rows over their norms, in numpy exactly as the JAX package does."""
+    qn = np.linalg.norm(q, axis=-1, keepdims=True)
+    return q / np.maximum(qn, 1e-30)
+
+
 class QuantizedScan:
     """Compressed snapshot of a collection's live rows + 2-stage search."""
 
-    # per-dispatch budget for the int4 coarse (B, N) f32 score block, which
-    # the kernel writes to device memory.  4 GB holds the B=1024 x 1M-row
-    # block in one dispatch (the main path); larger corpora split the batch
-    # so peak memory stays bounded.  Kept at the JAX value rather than
-    # derived from free memory: a bigger block buys no speed, since the
-    # kernel's time is linear in B*N either way.
+    # per-dispatch budget for the coarse (B, N) f32 score block of the
+    # kernel-scored kinds (int4, binary), which their kernels write to
+    # device memory.  4 GB holds the B=1024 x 1M-row block in one dispatch
+    # (the main path); larger corpora split the batch so peak memory stays
+    # bounded.  Kept at the JAX value rather than derived from free memory:
+    # a bigger block buys no speed, since the kernels' time is linear in
+    # B*N either way.
     _score_hbm_budget = 4 << 30
 
     def __init__(self, kind: str, quantizer, codes: torch.Tensor, store,
@@ -150,7 +207,10 @@ class QuantizedScan:
         self.codes = codes
         self._store = store
         self.metric = metric
-        self.default_rerank = {"int8": 4, "int4": 8}.get(kind, 16)
+        # 1-bit Hamming orders clustered corpora coarsely and needs a deep
+        # candidate pool (the JAX package's default); tune_rerank overrides
+        self.default_rerank = {"int8": 4, "int4": 8,
+                               "binary": 128}.get(kind, 16)
         self.built_count = int(codes.shape[0])
         self.built_n_valid = int(codes.shape[0])
         self.compute_dtype = "float32"
@@ -158,23 +218,54 @@ class QuantizedScan:
         self._valid_key = None
 
     @classmethod
-    def build(cls, collection, kind: str = "int8") -> "QuantizedScan":
+    def build(cls, collection, kind: str = "int8",
+              **kwargs) -> "QuantizedScan":
+        """Train on a strided sample of the live rows and encode the whole
+        capacity buffer (rows past the build-time count are masked at
+        search time).  ``kwargs`` go to the quantizer's training, as in the
+        JAX package: binary ``method`` / ``fixed_threshold``; pq ``m``,
+        ``k``, ``iters``, ``sample``, ``seed``; int8 and int4 ignore them."""
         kind = _canonical_kind(kind)
         store = collection._store
         n = store.count
-        # train on a bounded strided sample of the live rows (the capacity
-        # tail is zero padding), encode the whole capacity buffer: rows
-        # past n are masked at search time by built_count
+        metric = collection.config.metric
         dev = store.vectors
         t_cap = 262_144
         t_step = max(1, -(-max(n, 1) // t_cap))
         t_idx = torch.arange(0, max(n, 1), t_step,
                              device=dev.device)[:t_cap]
         sample = dev[t_idx].float()
-        qz = (ScalarQuantizer() if kind == "int8" else Int4Quantizer())
-        qz.train(sample)
-        codes = qz.encode(dev)
-        scan = cls(kind, qz, codes, store, collection.config.metric)
+        if kind in ("int8", "int4"):
+            qz = ScalarQuantizer() if kind == "int8" else Int4Quantizer()
+            qz.train(sample)
+            codes = qz.encode(dev)
+        elif kind == "binary":
+            # per-dim thresholds from numpy on the host, as in the JAX
+            # package: the same sample gives bit-identical codes
+            qz = BinaryQuantizer(device=dev.device).train(
+                sample.cpu().numpy(), **kwargs)
+            codes = qz.encode(dev)
+        else:
+            # PQ ADC distances are squared L2: cosine encodes the
+            # normalized corpus (L2 order over unit vectors is cosine
+            # order; the exact re-rank restores true scores), dot has no
+            # such reduction
+            if metric == DistanceMetric.DOT:
+                raise ValueError(
+                    "kind='pq' supports cosine/l2 collections only; the "
+                    "squared-L2 ADC ordering is wrong for dot — use "
+                    "kind='int8' for dot-metric collections")
+            cosine = metric == DistanceMetric.COSINE
+            kw = dict(kwargs)
+            qz = ProductQuantizer(m=kw.pop("m", 8), k=kw.pop("k", 256),
+                                  device=dev.device)
+            if cosine:
+                sample = sample / torch.clamp(
+                    torch.linalg.norm(sample, dim=1, keepdim=True),
+                    min=1e-30)
+            qz.train(sample.cpu().numpy(), **kw)
+            codes = _pq_encode_rows(dev, qz.codebooks, normalize=cosine)
+        scan = cls(kind, qz, codes, store, metric)
         scan.built_count = n
         scan.built_n_valid = store.n_valid
         scan.compute_dtype = collection.config.compute_dtype
@@ -197,6 +288,25 @@ class QuantizedScan:
             self._valid_key = key
         return self._valid_cached
 
+    def coarse_distances(self, q) -> torch.Tensor:
+        """(B, N) first-stage distances of the queries to every code row:
+        the quantized metric (int8, int4), Hamming counts (binary) or
+        squared-L2 ADC (pq; cosine queries normalized first)."""
+        q = np.ascontiguousarray(q, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        qz = self.quantizer
+        if self.kind == "int8":
+            return qz.distances(q, self.codes, metric=self.metric,
+                                stats=self._stats())
+        if self.kind == "int4":
+            return qz.distances(q, self.codes, metric=self.metric)
+        if self.kind == "binary":
+            return qz.hamming_distances(q, self.codes).float()
+        if self.metric == DistanceMetric.COSINE:
+            q = _normalized_host(q)
+        return qz.distances(q, self.codes)
+
     def search(self, queries, k: int, rerank: Optional[int] = None,
                mask: Optional[np.ndarray] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -207,14 +317,15 @@ class QuantizedScan:
             q = q[None, :]
         b = q.shape[0]
         n = int(self.codes.shape[0])
-        # cap the int4 kernel's (B, N) f32 output at the budget: split the
-        # batch into pow2 sub-batches (int8's product is a library GEMM
-        # whose block is the same size, but the JAX package streams it)
+        # cap the kernel-written (B, N) f32 score block (int4, binary) at
+        # the budget: split the batch into pow2 sub-batches (int8's product
+        # is a library GEMM whose block is the same size, but the JAX
+        # package streams it)
         cap = max(8, int(self._score_hbm_budget // (max(n, 1) * 4)))
         sub = 8
         while sub * 2 <= cap:
             sub *= 2
-        if self.kind == "int4" and b > sub:
+        if self.kind in ("int4", "binary") and b > sub:
             parts = [self.search(q[s:s + sub], k, rerank, mask)
                      for s in range(0, b, sub)]
             return (np.concatenate([p[0] for p in parts]),
@@ -231,29 +342,48 @@ class QuantizedScan:
         c = min(max(k * max(rerank, 1), k), n)
         kk = min(k, c)
         qd = torch.as_tensor(q).to(device)
-        if self.compute_dtype == "bfloat16":
-            # the JAX package ships bf16 queries in bf16 serving
-            qd = qd.bfloat16().float()
         qz = self.quantizer
-        if rerank > 1:
+        vectors = self._store.vectors
+        if rerank > 1 and self.kind in _FUSED:
+            # the fused pipelines; bf16 serving ships their queries in bf16
+            # (the JAX package's q_dev()), every other path keeps f32
+            qf = qd.bfloat16().float() if self.compute_dtype == "bfloat16" \
+                else qd
+            common = dict(metric=self.metric, k=kk, c=c,
+                          rerank_dtype=self.compute_dtype)
             if self.kind == "int8":
                 vsq, rinv = self._stats()
-                d, r = _int8_two_stage(
-                    qd, self.codes, qz.vmin, qz.scale, vsq, rinv,
-                    self._store.vectors, m, metric=self.metric, k=kk, c=c,
-                    rerank_dtype=self.compute_dtype)
+                d, r = _int8_two_stage(qf, self.codes, qz.vmin, qz.scale,
+                                       vsq, rinv, vectors, m, **common)
+            elif self.kind == "int4":
+                d, r = _int4_two_stage(qf, self.codes, qz.vmin, qz.scale,
+                                       vectors, m, **common)
             else:
-                d, r = _int4_two_stage(
-                    qd, self.codes, qz.vmin, qz.scale, self._store.vectors,
-                    m, metric=self.metric, k=kk, c=c,
-                    rerank_dtype=self.compute_dtype)
-        elif self.kind == "int8":
+                d, r = _binary_two_stage(qf, qz.thresholds, self.codes,
+                                         vectors, m, dims=qz.dims, **common)
+            return d.cpu().numpy(), r.to(torch.int32).cpu().numpy()
+        # the general path (pq, and rerank <= 1): coarse top-c in f32
+        if self.kind == "int8":
             vsq, rinv = self._stats()
-            d, r = _int8_coarse_topk(qd, self.codes, qz.vmin, qz.scale,
-                                     vsq, rinv, m, metric=self.metric, k=kk)
+            cvals, crows = _int8_coarse_topk(qd, self.codes, qz.vmin,
+                                             qz.scale, vsq, rinv, m,
+                                             metric=self.metric, k=c)
+        elif self.kind == "int4":
+            cvals, crows = _int4_coarse_topk(qd, self.codes, qz.vmin,
+                                             qz.scale, m, metric=self.metric,
+                                             k=c)
+        elif self.kind == "binary":
+            cvals, crows = _hamming_coarse_topk(
+                qz.encode(qd), self.codes, m, k=c,
+                chunk=int(min(262_144, next_pow2(n))))
         else:
-            d, r = _int4_coarse_topk(qd, self.codes, qz.vmin, qz.scale, m,
-                                     metric=self.metric, k=kk)
+            cvals, crows = masked_top_k(self.coarse_distances(q), c, m)
+        if rerank <= 1:
+            return (cvals[:, :k].cpu().numpy(),
+                    crows[:, :k].to(torch.int32).cpu().numpy())
+        # only pq re-ranks here, in f32 as the JAX package's _rerank does
+        d, r = gather_rerank(qd, cvals, crows, vectors, self.metric, kk,
+                             "float32")
         return d.cpu().numpy(), r.to(torch.int32).cpu().numpy()
 
     def tune_rerank(self, queries, target_recall: float = 0.95,
@@ -288,19 +418,27 @@ class QuantizedScan:
     # -- persistence (sections inside the collection's FPVT container) ----
     def export_sections(self) -> Tuple[dict, dict]:
         """Codes (real rows only) + quantizer params + tuned defaults, laid
-        out exactly as the JAX package writes them."""
+        out exactly as the JAX package writes them (binary words as
+        uint32)."""
         qz = self.quantizer
-        sections = {
-            "quant_codes": self.codes[:self.built_count].cpu().numpy(),
-            "quant_vmin": qz.vmin.cpu().numpy(),
-            "quant_scale": qz.scale.cpu().numpy(),
-        }
+        codes = self.codes[:self.built_count]
+        sections = {"quant_codes": (to_uint32(codes) if self.kind == "binary"
+                                    else codes.cpu().numpy())}
         meta = {"kind": self.kind,
                 "default_rerank": int(self.default_rerank),
                 "built_count": int(self.built_count),
                 "built_n_valid": int(self.built_n_valid),
-                "compute_dtype": self.compute_dtype,
-                "dims": qz.dims}
+                "compute_dtype": self.compute_dtype}
+        if self.kind in ("int8", "int4"):
+            sections["quant_vmin"] = qz.vmin.cpu().numpy()
+            sections["quant_scale"] = qz.scale.cpu().numpy()
+            meta["dims"] = qz.dims
+        elif self.kind == "binary":
+            sections["quant_thresholds"] = qz.thresholds.cpu().numpy()
+            meta["dims"] = qz.dims
+        else:
+            sections["quant_codebooks"] = qz.codebooks.cpu().numpy()
+            meta.update(dims=qz.dims, m=qz.m, k=qz.k)
         return sections, meta
 
     @classmethod
@@ -308,15 +446,35 @@ class QuantizedScan:
                       ) -> "QuantizedScan":
         kind = _canonical_kind(meta["kind"])
         device = collection._store.device
-        qz = (ScalarQuantizer if kind == "int8" else Int4Quantizer)(
-            dims=meta["dims"], device=device)
-        qz.vmin = as_tensor(np.array(sections["quant_vmin"]), device)
-        qz.scale = as_tensor(np.array(sections["quant_scale"]), device)
-        codes = torch.as_tensor(np.array(sections["quant_codes"])).to(device)
-        # saved codes cover built_count rows; pad to a multiple of 8 (the
-        # s8 GEMM's row granularity) as a fresh build's capacity-wide codes
-        # are — the padding rows sit past built_count and never rank
-        codes = torch.nn.functional.pad(codes, (0, 0, 0, -codes.shape[0] % 8))
+        if kind in ("int8", "int4"):
+            qz = (ScalarQuantizer if kind == "int8" else Int4Quantizer)(
+                dims=meta["dims"], device=device)
+            qz.vmin = as_tensor(np.array(sections["quant_vmin"]), device)
+            qz.scale = as_tensor(np.array(sections["quant_scale"]), device)
+        elif kind == "binary":
+            qz = BinaryQuantizer(dims=meta["dims"], device=device)
+            qz.thresholds = as_tensor(np.array(sections["quant_thresholds"]),
+                                      device)
+        else:
+            qz = ProductQuantizer(dims=meta["dims"], m=meta["m"],
+                                  k=meta["k"], device=device)
+            qz.codebooks = as_tensor(np.array(sections["quant_codebooks"]),
+                                     device)
+        if kind == "binary":
+            codes = from_uint32(sections["quant_codes"], device)
+        else:
+            codes = torch.as_tensor(np.array(sections["quant_codes"])
+                                    ).to(device)
+        # saved codes cover built_count rows; pad them back to the store's
+        # capacity as a fresh build's codes are (and at least to a multiple
+        # of 8, the s8 GEMM's row granularity) — the padding rows sit past
+        # built_count and never rank.  Same-shaped score blocks make the
+        # top-c cut keep the same rows among tied coarse scores (Hamming
+        # counts tie massively) before and after a reload.
+        n_codes = codes.shape[0]
+        codes = torch.nn.functional.pad(codes, (
+            0, 0, 0, max(collection._store.capacity - n_codes,
+                         -n_codes % 8)))
         scan = cls(kind, qz, codes, collection._store,
                    collection.config.metric)
         scan.default_rerank = int(meta.get("default_rerank",

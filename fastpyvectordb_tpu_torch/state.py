@@ -2,9 +2,9 @@
 
 A collection's state is plain numpy arrays, lists and JSON meta: the
 ``vectors`` / ``valid`` arrays of ``DeviceVectorStore.export_arrays()``, the
-``ann_*`` sections of ``IVFIndex.export_sections()``, the ``quant_*``
-sections of ``QuantizedScan.export_sections()``, and the ``ids`` /
-``metadata`` / ``config`` sections a collection saves.  Both packages
+``ann_*`` sections of ``IVFIndex`` / ``IVFPQIndex.export_sections()``, the
+``quant_*`` sections of ``QuantizedScan.export_sections()``, and the
+``ids`` / ``metadata`` / ``config`` sections a collection saves.  Both packages
 write exactly that into their FPVT containers, so one function turns it
 into a port ``Collection`` — for a file on disk (``Collection._load``) and
 for state handed over in memory (``collection_from_sections``).
@@ -23,11 +23,16 @@ def restore_into(col: Collection, meta: dict, sections: dict) -> None:
     """Replace ``col``'s rows, ids, metadata, ANN index and quantized
     snapshot with the given state, on ``col.device``.  An ``"ivf"`` index
     (centroids, row table, overflow rows, nprobe, rerank, int8
-    ``vmin``/``scale``) is carried across through ``IVFIndex.from_sections``;
-    other ANN kinds are not ported and raise rather than be dropped, which
-    would change what ``search()`` serves."""
+    ``vmin``/``scale``) is carried across through ``IVFIndex.from_sections``,
+    an ``"ivfpq"`` one (centroids, codebooks, PQ codes and reconstruction
+    norms, row table, overflow rows, nprobe, rerank) through
+    ``IVFPQIndex.from_sections``; the graph kind is not ported and raises
+    rather than be dropped, which would change what ``search()`` serves.
+    Quantized snapshots of every kind (int8 / int4 ``vmin``/``scale``,
+    binary thresholds, pq codebooks) come across through
+    ``QuantizedScan.from_sections``."""
     ann_meta = meta.get("ann")
-    if ann_meta and ann_meta.get("kind") != "ivf":
+    if ann_meta and ann_meta.get("kind") not in ("ivf", "ivfpq"):
         kind = ann_meta.get("kind")
         raise NotImplementedError(
             f"this collection holds an ANN index section (kind={kind!r}), "
@@ -48,8 +53,11 @@ def restore_into(col: Collection, meta: dict, sections: dict) -> None:
     col._serving_mode = meta.get("serving_mode")
     col._ann = None
     if ann_meta:
-        from .ann.ivf import IVFIndex
-        col._ann = IVFIndex.from_sections(
+        if ann_meta["kind"] == "ivf":
+            from .ann.ivf import IVFIndex as index_cls
+        else:
+            from .ann.ivfpq import IVFPQIndex as index_cls
+        col._ann = index_cls.from_sections(
             col, {k: v for k, v in sections.items() if k.startswith("ann_")},
             ann_meta)
     q_meta = meta.get("quantized")

@@ -251,22 +251,20 @@ def test_collection_from_sections():
 
 
 def test_unported_paths_raise_and_keep_ann_data(tmp_path):
-    # an IVF-PQ section (not ported) refuses to load rather than be dropped
+    # a graph ANN section (not ported) refuses to load rather than be
+    # dropped
     (jdb, jc), _, _, _ = _pair("l2", tmp_path / "j")
-    jc.build_ann("ivfpq", nlist=8, nprobe=2, iters=2, m=8, pq_k=16,
-                 pq_iters=2, tune=False)
+    with pytest.warns(UserWarning):
+        jc.build_ann("graph", r=8, n_entries=16, tune=False)
     jdb.save()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.VectorDB(tmp_path / "j", device="cpu")
     tc = T.VectorDB(None, device="cpu").create_collection("x", dimensions=4)
     tc.insert(np.ones(4, np.float32), "a")
-    for call in (lambda: tc.build_ann(kind="ivfpq"), tc.optimize, tc.prewarm,
+    for call in (lambda: tc.build_ann(kind="graph"), tc.optimize, tc.prewarm,
                  tc.search_arrays_stream, tc.as_sharded_searcher):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    for kind in ("binary", "pq"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tc.enable_quantized_scan(kind)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.VectorDB(tmp_path / "w", device="cpu").create_collection(
             "w", dimensions=4, durability="wal")
@@ -298,6 +296,7 @@ def test_port_never_imports_jax(tmp_path):
         sys.modules["jax"] = None
         import numpy as np
         import fastpyvectordb_tpu_torch as T
+        import fastpyvectordb_tpu_torch.ann.ivfpq  # binary, pq, all kernels
         from fastpyvectordb_tpu_torch.state import collection_from_sections
         db = T.VectorDB(sys.argv[1], device="cpu")
         c = db.create_collection("c", dimensions=8)

@@ -54,6 +54,32 @@ def assert_same_topk(want_d, want_r, got_d, got_r, rtol: float,
                 got_r[b][gv].tolist()), b
 
 
+def assert_same_tied_topk(want_d, want_r, got_d, got_r, scores=None,
+                          rtol: float = 0.0, atol: float = 0.0) -> None:
+    """Two (B, k) top-k results over scores that tie massively (Hamming
+    counts; ADC sums, equal for rows with equal codes): the same sorted
+    scores within the tolerance (bit for bit at the default 0); the same
+    rows wherever the score is clear of the row's last one (rows at that
+    score tie with rows past k, and either package may keep any of them);
+    and, given the full (B, N) score matrix, every returned row's own
+    score."""
+    want_d, got_d = np.asarray(want_d), np.asarray(got_d)
+    want_r, got_r = np.asarray(want_r), np.asarray(got_r)
+    np.testing.assert_allclose(got_d, want_d, rtol=rtol, atol=atol)
+    for b in range(want_d.shape[0]):
+        ok = valid(want_d[b])
+        if ok.any():
+            edge = want_d[b][ok].max()
+            inner = ok & (want_d[b] < edge - 2 * (rtol * abs(edge) + atol))
+            assert set(want_r[b][inner].tolist()) <= set(
+                got_r[b].tolist()), b
+    if scores is not None:
+        ok = valid(got_d)
+        own = np.take_along_axis(np.asarray(scores), np.maximum(got_r, 0),
+                                 axis=1)
+        np.testing.assert_allclose(own[ok], got_d[ok], rtol=rtol, atol=atol)
+
+
 def mean_overlap(a_rows, b_rows) -> float:
     """Mean |a ∩ b| / k over the rows of two (B, k) id grids."""
     a_rows, b_rows = np.asarray(a_rows), np.asarray(b_rows)
