@@ -20,7 +20,9 @@ defaults, grouped and per-query, filtered); the pq scan kind once on a
 launch counts are zeroed just before it and read just after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
-passed.  The last lines are a JSON object of per-kernel numbers, the card's
+passed.  The last lines are a JSON object of per-kernel numbers (launches
+on the path, kernel, plain-version and nearest-library-call times, the
+bound computed from the timed shape and what sets it), the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -49,10 +51,38 @@ TUNE_TARGET = 0.96
 QPS_BATCHES = 4               # distinct query batches per timed mode
 # bench.py's ivf_grouped_int8_rr4 recipe (bench.py:263-316)
 IVF_BUILD = {"nlist": 2048, "nprobe": 8, "iters": 6, "max_cell_factor": 1.25}
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet, dense rates)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, op_type: str) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory rate, or the operations at
+    the peak rate of their type, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops, "bound_op_type": op_type}
+
+
+def quant_bound(b: int, n: int, de: int, code_bytes: int) -> dict:
+    """B1 / B4: f32 queries, codes, two (de,) tables and qsq in, (b, n) f32
+    out; 2 b n de bf16 operations."""
+    return bound(4 * b * de + n * code_bytes + 8 * de + 4 * b + 4 * b * n,
+                 2.0 * b * n * de, "bf16")
+
+
+def hamming_bound(b: int, n: int, w: int) -> dict:
+    """B5 / B6: packed words in, (b, n) 4-byte counts out; the +-1 int8
+    product is 2 b n 32w operations."""
+    return bound(4 * b * w + 4 * n * w + 4 * b * n, 2.0 * b * n * 32 * w,
+                 "int8")
 
 
 def nvidia_smi_line() -> str:
@@ -154,15 +184,51 @@ def check_kernel(name, kern, plain, q, codes, vmin, scale, metric):
     return err, tol, top_ok
 
 
+def quant_library(name, queries, codes, vmin, scale):
+    """The nearest library call to B1 / B4 (cosine): one f32-output bf16
+    product of the normalised queries and the rows dequantised beforehand
+    (the exact bf16 mode's GEMM, ``kernels/distances.py:mm_f32``)."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    if name == "sq_scores":
+        v = (codes.float() + 128.0) * (scale / 255.0)[None, :] + vmin[None, :]
+    else:
+        v = qk.unpack_int4(codes).float() * (scale / 15.0)[None, :] \
+            + vmin[None, :]
+    qb = torch.nn.functional.normalize(queries.float(), dim=1).bfloat16()
+    vb = v.bfloat16()
+    del v
+    return lambda: torch.mm(qb, vb.T, out_dtype=torch.float32)
+
+
+def hamming_library(qcodes, codes):
+    """The nearest library call to B5 / B6: ``torch._int_mm`` of the +-1
+    int8 operands expanded beforehand (the counts are (32W - product)/2)."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    qpm, cpm = hk.pm1_queries(qcodes), hk.pm1_queries(codes)
+    return lambda: torch._int_mm(qpm, cpm.T)
+
+
+QUANT_LIBRARY = ("torch.mm(q_bf16, v_bf16.T, out_dtype=torch.float32) of "
+                 "rows dequantised beforehand")
+HAMMING_LIBRARY = "torch._int_mm(q_pm1, c_pm1.T) of +-1 int8 expanded beforehand"
+
+
 def phase_kernels(queries=None, block=None):
     """Kernel vs plain on the card: ragged small shapes for 3 metrics, and
-    the main-path block.  Returns per-kernel {max_abs_err, ms, plain_ms}."""
+    the main-path block.  Returns per-kernel {max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, ...} at B=1024 x 65,536 rows (B4's are replaced
+    by its numbers at the int4 path's own 1M rows in phase_main_path)."""
     import torch
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
     gen = torch.Generator(device="cuda").manual_seed(7)
     metrics = ("cosine", "l2", "ip")
     for name, kern, plain in _kernel_pairs():
-        for (b, n, d) in ((13, 1000, 41), (70, 3001, 130), (1, 64, 16)):
+        # B 1 / 13 / 70 / 200, N off the 128-row tile, D 41 / 130 / 1500
+        # (int4: odd W = 21, 65)
+        for (b, n, d) in ((13, 1000, 41), (70, 3001, 130), (1, 64, 16),
+                          (200, 1000, 1500)):
             codes, vmin, scale, de = _codes_for(name, gen, n, d)
             q = torch.randn((b, de), generator=gen, device="cuda")
             for metric in metrics:
@@ -189,9 +255,16 @@ def phase_kernels(queries=None, block=None):
                                   metric="cosine"))
         plain_ms = cuda_ms(lambda: plain(queries, codes, vmin, scale,
                                          metric="cosine"))
+        library_ms = cuda_ms(quant_library(name, queries, codes, vmin,
+                                           scale))
+        bnd = quant_bound(BATCH, BLOCK_ROWS, DIMS, codes.shape[1])
         log(f"[kernels] {name} B={BATCH} N={BLOCK_ROWS} D={DIMS} cosine: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
+        out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "library": QUANT_LIBRARY,
+                     "shape": [BATCH, BLOCK_ROWS, DIMS], **bnd}
     qk.LAUNCHES.update({key: 0 for key in qk.LAUNCHES})
     return out
 
@@ -216,29 +289,35 @@ def phase_hamming_kernels(queries, block):
     pairs = (("hamming_mxu_scores", hk.hamming_mxu_scores,
               hk.hamming_mxu_scores_plain),
              ("hamming_scores", hk.hamming_scores, hk.hamming_scores_plain))
-    for b in (1, 13, 70):
+    for b in (1, 13, 70, 200):
         for n in (64, 1000, 3001):
-            # 1500 dims (W=47) stage a second, shorter chunk of words
-            for d in (16, 41, 70, 130, 1500):
+            # W = 1 / 2 / 3 / 5 / 24 / 47: odd widths, a partial last K step
+            for d in (16, 41, 70, 130, 768, 1500):
                 rows = torch.randn((n, d), generator=gen, device="cuda")
                 bq = BinaryQuantizer(device="cuda").train(rows)
                 qc = bq.encode(torch.randn((b, d), generator=gen,
                                            device="cuda"))
                 for name, kern, plain in pairs:
                     check_hamming(name, kern, plain, qc, bq.encode(rows))
-    log("[kernels] hamming_mxu_scores, hamming_scores at 45 ragged shapes "
-        "(B 1/13/70 x N 64/1000/3001 x D 16/41/70/130/1500): equal to plain")
+    log("[kernels] hamming_mxu_scores, hamming_scores at 72 ragged shapes "
+        "(B 1/13/70/200 x N 64/1000/3001 x D 16/41/70/130/768/1500): equal "
+        "to plain")
     bq = BinaryQuantizer(device="cuda").train(block)
     codes, qc = bq.encode(block), bq.encode(queries)
     out = {}
+    library_ms = cuda_ms(hamming_library(qc, codes))
+    bnd = hamming_bound(BATCH, BLOCK_ROWS, codes.shape[1])
     for name, kern, plain in pairs:
         check_hamming(name, kern, plain, qc, codes)
         ms = cuda_ms(lambda: kern(qc, codes))
         plain_ms = cuda_ms(lambda: plain(qc, codes))
         log(f"[kernels] {name} B={BATCH} N={BLOCK_ROWS} D={DIMS} "
             f"(W={codes.shape[1]}): equal to plain; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "library": HAMMING_LIBRARY,
+                     "shape": [BATCH, BLOCK_ROWS, codes.shape[1]], **bnd}
     hk.LAUNCHES.update({key: 0 for key in hk.LAUNCHES})
     return out
 
@@ -272,6 +351,35 @@ def timed_qps(fn, batches) -> float:
     end.record()
     torch.cuda.synchronize()
     return sum(len(qb) for qb in batches) / (start.elapsed_time(end) / 1e3)
+
+
+def int4_main_path(scan, queries):
+    """B4 at the int4 path's own shape, as ``_int4_two_stage`` calls it: the
+    B=1024 batch against the whole snapshot.  Checked against the plain
+    version, then kernel, plain and library times."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    from fastpyvectordb_tpu_torch.quant.int4 import _pad_queries
+    qz, codes = scan.quantizer, scan.codes
+    q = _pad_queries(torch.as_tensor(queries, device="cuda"),
+                     2 * codes.shape[1])
+    args = (q, codes, qz.vmin, qz.scale)
+    err, tol, top = check_kernel("int4_scores", qk.int4_scores,
+                                 qk.int4_scores_plain, *args, "cosine")
+    ms = cuda_ms(lambda: qk.int4_scores(*args, metric="cosine"), reps=5)
+    plain_ms = cuda_ms(lambda: qk.int4_scores_plain(*args, metric="cosine"),
+                       reps=2)
+    library_ms = cuda_ms(quant_library("int4_scores", *args), reps=5)
+    n, w = codes.shape
+    bnd = quant_bound(BATCH, n, 2 * w, w)
+    log(f"[kernels] int4_scores main path B={BATCH} N={n} D={2 * w} cosine: "
+        f"max_abs_err {err:.3g} (tol {tol:.3g}) top1-agree {top:.3f}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": QUANT_LIBRARY,
+            "shape": [BATCH, n, 2 * w], **bnd}
 
 
 def phase_main_path(tmpdir: Path):
@@ -396,6 +504,7 @@ def phase_main_path(tmpdir: Path):
         f"{BATCH}x{BLOCK_ROWS}: max gap to int8mm {gap:.3g}")
     launches = dict(qk.LAUNCHES)
     log(f"[main] kernel launches on the main path: {launches}")
+    kernels["int4_scores"] = int4_main_path(scans["int4"], queries)
 
     ivf_kernels, ivf_launches = phase_ivf(col, bf, queries, tune_queries,
                                           timing_batches, truth, bf_truth,
@@ -409,8 +518,10 @@ def phase_main_path(tmpdir: Path):
     # -- the compressed tiers, on a third collection of the same rows ------
     cc = db.create_collection("compressed", dimensions=DIMS, metric="cosine")
     cc.insert_batch(host, ids, metas)
-    launches.update(phase_binary(cc, queries, tune_queries, timing_batches,
-                                 truth, results))
+    bin_kernel, bin_launches = phase_binary(cc, queries, tune_queries,
+                                            timing_batches, truth, results)
+    kernels.update(bin_kernel)
+    launches.update(bin_launches)
     pq_kernel, pq_launches = phase_ivfpq(cc, queries, tune_queries,
                                          timing_batches, truth, results)
     kernels.update(pq_kernel)
@@ -575,6 +686,36 @@ def check_ivf_kernel(name, kern, plain, args, metric, rtol):
     return err, tol
 
 
+IVF_LIBRARY = {
+    False: "torch.bmm(q_slots, cells[ids].transpose(1, 2), "
+           "out_dtype=torch.float32) of cells gathered beforehand",
+    True: "none: PyTorch's s8 product (torch._int_mm) is 2-D only"}
+
+
+def ivf_bound(args, int8: bool) -> dict:
+    """B2 / B3 at the path's operands: the compact slots and the probed
+    cells read once (unique cells), norms and masks of those cells and the
+    per-slot tables in, the (n_uniq, qcap, cmax) f32 block out."""
+    n = int(args[0][0])
+    u, qcap, d = args[1].shape
+    cmax = args[2].shape[1]
+    elt = 1 if int8 else 2
+    slot_tables = (3 if int8 else 1) * 4 * n * qcap
+    nbytes = (4 * (u + 1) + elt * n * qcap * d + elt * n * cmax * d
+              + 8 * n * cmax + slot_tables + 4 * n * qcap * cmax)
+    return bound(nbytes, 2.0 * n * qcap * cmax * d, "int8" if int8 else "bf16")
+
+
+def ivf_library(args):
+    """The nearest library call to B2: one f32-output batched product of
+    the compact slots and the probed cells gathered beforehand."""
+    import torch
+    n = int(args[0][0])
+    q = args[1][:n]
+    cells = args[2][args[0][1:1 + n].long()]
+    return lambda: torch.bmm(q, cells.transpose(1, 2), out_dtype=torch.float32)
+
+
 def phase_ivf(col, bf, queries, tune_queries, timing_batches, truth,
               bf_truth, results):
     """The IVF path: ``bench.py``'s ``ivf_grouped_int8_rr4`` on the f32
@@ -653,9 +794,14 @@ def phase_ivf(col, bf, queries, tune_queries, timing_batches, truth,
         args = ivf_kernel_case(ann, queries, "cosine", ann.nprobe)
         ms = cuda_ms(lambda: kern(*args, metric="cosine"))
         plain_ms = cuda_ms(lambda: plain(*args, metric="cosine"))
+        bnd = ivf_bound(args, int8)
+        library_ms = None if int8 else cuda_ms(ivf_library(args))
         log(f"[kernels] {name} main path nprobe {ann.nprobe} cosine: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "library": IVF_LIBRARY[int8], **bnd}
     return out, launches
 
 
@@ -663,7 +809,8 @@ def phase_binary(cc, queries, tune_queries, timing_batches, truth,
                  results):
     """The binary two-stage path (kernel B5 over the snapshot's packed
     codes) with its re-rank depth tuned on held-out queries, then the
-    ``rerank=1`` coarse path (kernel B6).  Returns the path's launches."""
+    ``rerank=1`` coarse path (kernel B6), then B5 alone at the path's shape.
+    Returns (B5's numbers, the path's launches)."""
     import numpy as np
     import torch
     from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
@@ -695,10 +842,22 @@ def phase_binary(cc, queries, tune_queries, timing_batches, truth,
         f"{results['binary_2stage']}")
     # the first stage alone at the path's own shape (B=1024 x 1M rows)
     qc = scan.quantizer.encode(torch.as_tensor(queries, device="cuda"))
-    ms = cuda_ms(lambda: hk.hamming_mxu_scores(qc, scan.codes), reps=3)
-    log(f"[kernels] hamming_mxu_scores B={BATCH} N={scan.codes.shape[0]} "
-        f"W={scan.codes.shape[1]}: kernel {ms:.4f} ms")
-    return launches
+    codes = scan.codes
+    check_hamming("hamming_mxu_scores", hk.hamming_mxu_scores,
+                  hk.hamming_mxu_scores_plain, qc, codes)
+    ms = cuda_ms(lambda: hk.hamming_mxu_scores(qc, codes), reps=5)
+    plain_ms = cuda_ms(lambda: hk.hamming_mxu_scores_plain(qc, codes), reps=1)
+    library_ms = cuda_ms(hamming_library(qc, codes), reps=5)
+    n, w = codes.shape
+    bnd = hamming_bound(BATCH, n, w)
+    log(f"[kernels] hamming_mxu_scores main path B={BATCH} N={n} W={w}: "
+        f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']})")
+    return ({"hamming_mxu_scores": {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library": HAMMING_LIBRARY,
+        "shape": [BATCH, n, w], **bnd}}, launches)
 
 
 def ivfpq_kernel_case(ann, queries, nprobe: int):
@@ -755,6 +914,19 @@ def check_pq_kernel(args):
         raise AssertionError(f"grouped_cell_scores_pq: max|kernel-plain| "
                              f"{err:.3g} > {tol:.3g}")
     return err, tol
+
+
+def pq_bound(args) -> dict:
+    """B7 at the path's operands: the ADC tables, the slot table and the
+    probed cells' codes in, one f32 per filled slot and cell row out; one
+    f32 add per (filled slot, cell row, subspace)."""
+    cell_ids, lut, qslot, codes_t = args
+    n = int(cell_ids[0])
+    _, m, cmax = codes_t.shape
+    filled = int((qslot[:n] >= 0).sum())
+    nbytes = (4 * cell_ids.numel() + 2 * lut.numel() + 4 * n * qslot.shape[1]
+              + n * m * cmax + 4 * filled * cmax)
+    return bound(nbytes, float(filled) * cmax * m, "f32")
 
 
 def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
@@ -851,10 +1023,15 @@ def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
     ms = cuda_ms(lambda: ik.grouped_cell_scores_pq(*args))
     plain_ms = cuda_ms(lambda: ik.grouped_cell_scores_pq_plain(*args),
                        reps=3)
+    bnd = pq_bound(args)
     log(f"[kernels] grouped_cell_scores_pq main path nprobe {ann.nprobe}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return ({"grouped_cell_scores_pq": {"max_abs_err": worst, "ms": ms,
-                                        "plain_ms": plain_ms}}, launches)
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return ({"grouped_cell_scores_pq": {
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None,
+        "library": "none: no PyTorch call looks up a table through a slot "
+                   "table", **bnd}}, launches)
 
 
 def phase_pq_scan(db, host, queries, timing_batches, results):

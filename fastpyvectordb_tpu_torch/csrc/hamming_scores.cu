@@ -1,161 +1,173 @@
-// Packed-bit Hamming distances for Hopper (sm_90a): XOR + popcount of
-// 32-bit code words, summed over the words -> (B, N) counts.
+// Packed-bit Hamming distances for Hopper (sm_90a) as an exact int8
+// tensor-core product -> (B, N) counts.
 //
 // Replaces the TPU Pallas kernels in fastpyvectordb_tpu/kernels/pallas_quant.py:
 //   fpv_hamming_mxu_scores <- hamming_mxu_scores (_hamming_mxu_kernel):
 //                             the count as f32 (the binary two-stage scan)
 //   fpv_hamming_scores     <- hamming_scores     (_hamming_kernel):
 //                             the count as int32 (BinaryQuantizer, rerank <= 1)
-// One templated kernel; the two entries differ only in the output type.
+// One templated kernel (hopper_scan.cuh's scan_kernel with HammingOp); the
+// two entries differ only in the output type.
 //
 // What it computes, per (query b, corpus row n):
-//   out[b, n] = sum_w popc(q[b, w] ^ c[n, w])
-// Both operands are row-major packed words (the snapshot's own (N, W)
-// codes; no word-major copy).  The TPU kernel of the two-stage scan
-// expands the bits to a +-1 bf16 matrix product, (32W - q.c)/2, only
-// because the TPU has no fast popcount; the count is the same integer, so
-// both entries equal their plain versions bit for bit.  Zero padding bits
-// past D are zero on both sides and add nothing.
+//   out[b, n] = sum_w popc(q[b, w] ^ c[n, w]) = (32W - q+- . c+-) / 2
+// where x+- maps each bit of the row-major (., W) int32 words to +1 (set)
+// or -1 (clear), bit j of word w at position 32w + j, as the TPU kernel of
+// the two-stage scan does.  Padding bits past D are clear on both sides,
+// so they add +1 to the product and 0 to the count.  The product is
+// s8 x s8 -> s32 on the tensor cores: sums of +-1 are exact in s32, so both
+// entries equal their plain versions (a byte-table popcount) bit for bit.
 //
-// What bounds it: at the main path's B=1024 x N=1M x W=24 (768 dims) it is
-// 24.6 G XOR + popcount + add, and popcount issues at 16 a clock per SM:
-// ~6.6 ms on 132 SMs at 1.755 GHz, against 1.2 ms for its 4.1 GB f32
-// output at 3.35 TB/s and 0.1 GB of codes.  It is bound by the popcount
-// rate; the b1 tensor-core MMA (xor + popc on 256-bit fragments) is what
-// would lift that bound (later work).
+// What bounds it: at the binary path's B=1024 x N=1M x W=24 (768 dims) the
+// +-1 product is 2*B*N*32W = 1.57 T int8 operations, 0.79 ms at 1,979
+// TOP/s; its bytes are the (B, N) 4-byte output (4.10 GB), the codes
+// (0.10 GB) and the queries, 1.25 ms at 3.35 TB/s.  So it is bound by the
+// output write.  XOR + popcount on the CUDA cores (16 popcounts a clock per
+// SM) would take ~6.6 ms for the same count.
 //
-// Tiling: one 256-thread block computes a 64 x 128 (queries x rows) tile.
-// Per chunk of up to 32 words it stages the tile's query and corpus words
-// in shared memory, word-major, reading each row's contiguous words
-// coalesced.  Each thread keeps an 8 x 4 register tile of counts: per word
-// it reads 8 query words (two 16-byte loads, the same for the whole warp)
-// and 4 corpus words (one 16-byte load) for 32 XOR + popcount.  A warp
-// covers 128 consecutive rows, so the store writes 512 contiguous bytes a
-// query row (16-byte stores when N % 4 == 0).  Ragged B, N and W are
-// masked here (zero words, unwritten outputs): the caller pads nothing.
+// What the design does about it: wgmma (m64n256k32, s8 -> s32) on tiles of
+// 128 corpus rows x 256 queries in a persistent, warp-specialised block
+// (hopper_scan.cuh), with the corpus rows as wgmma's M side, taken from
+// registers.  The wrapper expands the query words once per call into a
+// (B, Kp) +-1 int8 copy (zero past 32W, Kp a multiple of 128), which TMA
+// loads into a 5-stage ring of swizzled tiles beside each step's corpus
+// words (cp.async, by a producer warpgroup).  Each consumer thread expands
+// the bits of its own A fragment, a nibble into 4 bytes with one
+// multiply-and-mask (bit i -> byte i) and one multiply for the sign.  The
+// epilogue forms (32W - dot) >> 1 from the accumulators and stores it
+// through a staging tile with TMA.  On one H100 it runs the binary path's
+// shape in ~1.8-1.9 ms against its 1.25 ms bound (PERF.md): the output
+// store blocks the consumers for part of every tile.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "hopper_scan.cuh"
 
 namespace {
 
-constexpr int TX = 32;               // threads along the corpus rows
-constexpr int TY = 8;                // threads along the queries
-constexpr int THREADS = TX * TY;
-constexpr int TN = 4;                // corpus rows per thread
-constexpr int TM = 8;                // queries per thread
-constexpr int BN = TX * TN;          // 128 rows per block
-constexpr int BM = TY * TM;          // 64 queries per block
-constexpr int WK = 32;               // words per staged chunk
-constexpr int LDC = BN + 4;          // padded row stride, 16-byte aligned
-
-__device__ __forceinline__ void store4(int* dst, const int (&v)[TN]) {
-  *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(float* dst, const int (&v)[TN]) {
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(float(v[0]), float(v[1]), float(v[2]), float(v[3]));
-}
-
 template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-hamming_kernel(const uint32_t* __restrict__ q,   // (B, W)
-               const uint32_t* __restrict__ c,   // (N, W)
-               OutT* __restrict__ out,           // (B, N)
-               int B, int N, int W) {
-  __shared__ __align__(16) uint32_t qs[WK][BM];
-  __shared__ __align__(16) uint32_t cs[WK][LDC];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+struct HammingOp {
+  using Acc = int;
+  using Out = OutT;
+  static constexpr CUtensorMapDataType OUT_TYPE =
+      std::is_same<OutT, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_INT32;
+  static constexpr int KSTEP_ELEMS = 128;   // int8 a step: 4 words
+  static constexpr int CODE_BYTES = 16;     // a row a step
+  static constexpr int STAGE_EXTRA = fpv::BC * CODE_BYTES;
+  static constexpr int STAGES = 5;
 
-  int acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+  struct Params {
+    int B, N;
+    OutT* out;              // (B, N)
+    const uint32_t* codes;  // (N, W)
+    int W;
+    int vec;                // 16-byte word copies: aligned rows
+  };
 
-  for (int k0 = 0; k0 < W; k0 += WK) {
-    const int kn = min(WK, W - k0);
-    // consecutive threads read consecutive words of a row: the tile's
-    // words are contiguous in memory when the chunk spans the whole row
-    for (int i = tid; i < BN * kn; i += THREADS) {
-      const int r = i / kn;
-      const int k = i - r * kn;
-      const int n = n0 + r;
-      cs[k][r] = n < N ? __ldg(c + (size_t)n * W + k0 + k) : 0u;
+  // copy words 4k .. 4k + 3 of corpus row n (thread r's row) into the
+  // stage, zero past the row or N.  True if the copy went by cp.async.
+  static __device__ __forceinline__ bool fetch(const Params& p, uint8_t* ex,
+                                               int r, int n, int k) {
+    const int w0 = 4 * k;
+    const uint32_t* src = p.codes + (size_t)n * p.W + w0;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(ex + r * CODE_BYTES);
+    if (p.vec && n < p.N && w0 + 4 <= p.W) {
+      fpv::cp_async16(dst, src);
+      return true;
     }
-    for (int i = tid; i < BM * kn; i += THREADS) {
-      const int r = i / kn;
-      const int k = i - r * kn;
-      const int b = m0 + r;
-      qs[k][r] = b < B ? __ldg(q + (size_t)b * W + k0 + k) : 0u;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kn; ++k) {
-      const uint4 cv = *reinterpret_cast<const uint4*>(&cs[k][tx * TN]);
-      const uint4 qa = *reinterpret_cast<const uint4*>(&qs[k][ty * TM]);
-      const uint4 qb = *reinterpret_cast<const uint4*>(&qs[k][ty * TM + 4]);
-      const uint32_t cw[TN] = {cv.x, cv.y, cv.z, cv.w};
-      const uint32_t qw[TM] = {qa.x, qa.y, qa.z, qa.w,
-                               qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += __popc(qw[i] ^ cw[j]);
-    }
-    __syncthreads();  // the tiles are rewritten by the next chunk
+    for (int i = 0; i < 4; ++i)
+      dst[i] = (n < p.N && w0 + i < p.W) ? __ldg(src + i) : 0u;
+    return false;
   }
 
-  const int n = n0 + tx * TN;
-  const bool vec = (N % 4) == 0 && n + TN <= N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int b = m0 + ty * TM + i;
-    if (b >= B) break;
-    OutT* dst = out + (size_t)b * N + n;
-    if (vec) {
-      store4(dst, acc[i]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        if (n + j < N) dst[j] = OutT(acc[i][j]);
-    }
+  // 4 bits -> 4 bytes, +1 where the bit is set and -1 (0xFF) where clear
+  static __device__ __forceinline__ uint32_t pm1_nibble(uint32_t x) {
+    const uint32_t m = ((x & 0xFu) * 0x00204081u) & 0x01010101u;
+    return ~(m * 0xFEu);
   }
-}
+
+  // the A fragment of slice kk (bits 32kk .. 32kk + 31 = word kk of the
+  // step) for rows frow, frow + 8: a[0] / a[1] bits 4q .. 4q + 3 of each
+  // row's word, a[2] / a[3] bits 16 + 4q .. (q = lane % 4)
+  static __device__ __forceinline__ void fragment(const Params&,
+                                                  const uint8_t* ex, int frow,
+                                                  int lane, int kk,
+                                                  uint32_t (&a)[4], float&,
+                                                  float&) {
+    const int q = lane % 4;
+    const uint32_t x0 =
+        reinterpret_cast<const uint32_t*>(ex + frow * CODE_BYTES)[kk];
+    const uint32_t x1 =
+        reinterpret_cast<const uint32_t*>(ex + (frow + 8) * CODE_BYTES)[kk];
+    a[0] = pm1_nibble(x0 >> (4 * q));
+    a[1] = pm1_nibble(x1 >> (4 * q));
+    a[2] = pm1_nibble(x0 >> (16 + 4 * q));
+    a[3] = pm1_nibble(x1 >> (16 + 4 * q));
+  }
+
+  static __device__ __forceinline__ void mma(int (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " FPV_D128
+        ", {%128, %129, %130, %131}, %132, p;\n"
+        "}\n"
+        : FPV_ACC128(FPV_R)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+
+  static __device__ __forceinline__ float row_value(const Params&, float) {
+    return 0.0f;
+  }
+
+  static __device__ __forceinline__ float query_value(const Params&, int) {
+    return 0.0f;
+  }
+
+  static __device__ __forceinline__ OutT score(const Params& p, int dot, float,
+                                               float) {
+    return OutT((32 * p.W - dot) >> 1);
+  }
+};
 
 template <typename OutT>
-int launch(const void* q, const void* c, void* out, int B, int N, int W,
-           void* stream) {
-  if (B <= 0 || N <= 0) return int(cudaGetLastError());
-  if (W <= 0) return int(cudaErrorInvalidValue);
-  const unsigned gx = unsigned((N + BN - 1) / BN);
-  const unsigned gy = unsigned((B + BM - 1) / BM);
-  if (gy > 65535u) return int(cudaErrorInvalidConfiguration);
-  hamming_kernel<OutT><<<dim3(gx, gy), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)q, (const uint32_t*)c, (OutT*)out, B, N, W);
-  return int(cudaGetLastError());
+int launch(const void* qpm, const void* codes, void* out, int B, int N, int W,
+           int kp, void* stream) {
+  using Op = HammingOp<OutT>;
+  // the kp positions must cover the 32W bits and no more than one step past
+  if (W <= 0 || kp % Op::KSTEP_ELEMS != 0 || kp < 32 * W ||
+      kp - Op::KSTEP_ELEMS >= 32 * W)
+    return int(cudaErrorInvalidValue);
+  typename Op::Params p;
+  p.B = B;
+  p.N = N;
+  p.out = static_cast<OutT*>(out);
+  p.codes = static_cast<const uint32_t*>(codes);
+  p.W = W;
+  p.vec = (W % 4) == 0 && (reinterpret_cast<uintptr_t>(codes) % 16) == 0;
+  return fpv::launch<Op>(qpm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kp, p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, W) and c (N, W) packed 32-bit words; out (B, N) f32 Hamming
-// distances.  Returns cudaGetLastError().
-int fpv_hamming_mxu_scores(const void* q, const void* c, void* out, int B,
-                           int N, int W, void* stream) {
-  return launch<float>(q, c, out, B, N, W, stream);
+// qpm (B, kp) int8 +-1 query bits (zero past 32W), c (N, W) packed 32-bit
+// words; out (B, N) f32 Hamming distances.  Returns a cudaError_t as int.
+int fpv_hamming_mxu_scores(const void* qpm, const void* c, void* out, int B,
+                           int N, int W, int kp, void* stream) {
+  return launch<float>(qpm, c, out, B, N, W, kp, stream);
 }
 
-// As above with an int32 output.  Returns cudaGetLastError().
-int fpv_hamming_scores(const void* q, const void* c, void* out, int B, int N,
-                       int W, void* stream) {
-  return launch<int>(q, c, out, B, N, W, stream);
+// As above with an int32 output.  Returns a cudaError_t as int.
+int fpv_hamming_scores(const void* qpm, const void* c, void* out, int B, int N,
+                       int W, int kp, void* stream) {
+  return launch<int>(qpm, c, out, B, N, W, kp, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,475 @@
+// The warp-specialised wgmma scan shared by quant_scores.cu (B1, B4) and
+// hamming_scores.cu (B5, B6): (B, K) queries x (N, packed codes) corpus ->
+// (B, N) scores, for Hopper (sm_90a).
+//
+// The product runs transposed: the corpus rows are wgmma's M side, taken
+// from registers, and the queries its N side (n256), read from shared
+// memory.  So the codes are expanded by the threads that multiply them,
+// straight into wgmma's register A fragments, and never pass through
+// shared memory as an expanded operand.
+//
+// One persistent block per SM walks (128 corpus rows x 256 queries) tiles,
+// the query tiles of one corpus tile next to each other so that their code
+// rows come from L2.  Each block has three warpgroups:
+//
+//   * warpgroup 2, the producer, fills a ring of Op::STAGES shared-memory
+//     stages, one K step each (128 bytes of every query row): its first
+//     thread loads the step's query tile (256 x 128 B) with TMA into a
+//     128-byte-swizzled tile; every thread copies one corpus row's packed
+//     codes for the step with cp.async (threads 0-31 also the step's
+//     Op table), and the stage's `full` mbarrier completes when all of
+//     these have landed.
+//   * warpgroups 0 and 1, the consumers: 64 corpus rows each.  For each
+//     16- (bf16) or 32-deep (int8) slice a thread expands its fragment's
+//     codes (Op::fragment: dequantise to bf16, or bits to +-1 int8) into
+//     4 registers and issues one m64n256 wgmma against the query tile (128
+//     accumulator registers a thread); two fragment buffers let the next
+//     slice's expansion overlap the product in flight.  A stage is
+//     released on `empty` once its last product has completed.  Where Op
+//     keeps a per-row sum (the dequantised row's squared norm), each
+//     thread sums its fragment's share and a quad of lanes adds them up:
+//     the rows a thread sums are the rows of its accumulators.  The
+//     epilogue turns the accumulators into scores (Op::score), writes them
+//     64 queries x 64 rows at a time into a swizzled staging tile, and
+//     stores that with TMA; the tile's last store drains while the next
+//     tile's products run.  Where N is not a multiple of 4 (TMA needs
+//     16-byte rows) they are stored from registers instead.
+//
+// setmaxnreg moves registers from the producer to the consumers.  The
+// query operand is a (B, Kp) copy made by the wrapper (bf16 or int8, Kp a
+// multiple of one K step, zero past the true width); the TMA descriptors
+// of it and of the output are built here in the launcher, with
+// cuTensorMapEncodeTiled taken from the runtime's driver entry point (no
+// -lcuda).  Query rows past B are zero-filled by TMA, corpus rows past N
+// are read as zero codes, and outputs past (B, N) are clipped by TMA or
+// masked.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fpv {
+
+constexpr int BQ = 256;                   // queries per tile (wgmma N)
+constexpr int BC = 128;                   // corpus rows per tile (2 x m64)
+constexpr int ROW_BYTES = 128;            // one K step of a query row
+constexpr int Q_BYTES = BQ * ROW_BYTES;   // query tile of a stage
+constexpr int CONSUMERS = 256;            // two consumer warpgroups
+constexpr int PRODUCERS = 128;            // one producer warpgroup
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+// registers a thread after setmaxnreg, moved from the producer to the
+// consumers; the two claims must leave slack in the SM's 65,536 (with none
+// the consumers' claim can wait forever)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 224;
+static_assert(PRODUCERS * kProducerRegs + CONSUMERS * kConsumerRegs <=
+                  65536 - 2048, "register budget");
+constexpr int OUT_BOX = 64 * 32 * 4;      // one 64 x 32 4-byte TMA store box
+constexpr int STAGING = 2 * OUT_BOX;      // a consumer's 64 x 64 staging tile
+
+// shared memory of the scan: two staging tiles, then per stage the query
+// tile, Op's codes and table (Op::STAGE_EXTRA bytes) and two barriers
+template <class Op>
+struct Layout {
+  static constexpr int STAGE = Q_BYTES + Op::STAGE_EXTRA;
+  static constexpr int RING = 2 * STAGING;
+  static constexpr int BAR = RING + Op::STAGES * STAGE;
+  static constexpr int BYTES = BAR + 2 * Op::STAGES * 8;
+  static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte swizzle atoms");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// arrive once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// a barrier among `count` threads of the block (ids 1.. ; 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+      "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the issuing thread's TMA stores have read their shared-memory source
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// 16 bytes global -> shared, asynchronously (L2 only)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)), "l"(src) : "memory");
+}
+
+// generic-proxy shared-memory writes made visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator or fragment accesses across a
+// wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// the 128 accumulator operands of an m64n256 wgmma, as PTX text and as asm
+// operands of d[0..127] with constraint C ("+f" or "+r")
+#define FPV_D128 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" "}"
+#define FPV_ACC8(C, i)                                                     \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
+      C(d[i + 6]), C(d[i + 7])
+#define FPV_ACC64(C, i)                                                    \
+  FPV_ACC8(C, i), FPV_ACC8(C, i + 8), FPV_ACC8(C, i + 16),                 \
+      FPV_ACC8(C, i + 24), FPV_ACC8(C, i + 32), FPV_ACC8(C, i + 40),       \
+      FPV_ACC8(C, i + 48), FPV_ACC8(C, i + 56)
+#define FPV_ACC128(C) FPV_ACC64(C, 0), FPV_ACC64(C, 64)
+#define FPV_F(x) "+f"(x)
+#define FPV_R(x) "+r"(x)
+
+// wgmma matrix descriptor of a K-major tile in 128-byte-swizzled rows of
+// 128 bytes: 8-row groups 1024 bytes apart (SBO); LBO unused for this
+// layout.  Advancing 32 bytes along K adds 2 to the address field.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFu) >> 4) | (uint64_t(1) << 16) | (uint64_t(64) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// byte offset of the 16-byte chunk `c` of row `r` in a 128B-swizzled tile
+// (the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B reads and writes)
+__device__ __forceinline__ int sw128_chunk(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// exact float of an integer in [0, 2^23): one OR and one subtraction
+__device__ __forceinline__ float small_uint_to_float(uint32_t x) {
+  return __uint_as_float(0x4B000000u | x) - 8388608.0f;
+}
+
+template <class Op>
+__global__ void __launch_bounds__(THREADS, 1)
+scan_kernel(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap omap,
+            const typename Op::Params p, int ntiles, int qtiles, int ksteps,
+            int tma_out) {
+  using L = Layout<Op>;
+  constexpr int STAGES = Op::STAGES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem + L::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], PRODUCERS + 1);    // producers + the TMA arrive
+      mbar_init(&empty[s], CONSUMERS / 32);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer warpgroup: one corpus row of every tile per thread ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int r = tid - CONSUMERS;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int n = (tile / qtiles) * BC + r;
+      for (int k = 0; k < ksteps; ++k) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* st = ring + stage * L::STAGE;
+        if (r == 0) {
+          mbar_arrive_tx(&full[stage], Q_BYTES);
+          tma_load_2d(st, &qmap, &full[stage], k * Op::KSTEP_ELEMS,
+                      (tile % qtiles) * BQ);
+        }
+        // copies with cp.async arrive when they land; others (ragged rows,
+        // written by this thread) arrive at once
+        if (Op::fetch(p, st + Q_BYTES, r, n, k))
+          mbar_arrive_cp_async(&full[stage]);
+        else
+          mbar_arrive(&full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 corpus rows of every tile each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int g = tid / 128;
+    const int w = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int frow = 64 * g + 16 * w + lane / 4;   // fragment rows: +0, +8
+    uint8_t* out_s = smem + g * STAGING;
+    typename Op::Acc d[128];
+    uint32_t a[2][4];        // fragment buffers: slices alternate
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      float rs0 = 0.0f, rs1 = 0.0f;   // Op's row sums of rows frow, frow + 8
+      int prev = 0;
+      for (int k = 0; k < ksteps; ++k) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* st = ring + stage * L::STAGE;
+        const uint64_t db = sw128_desc(st);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // the product that read a[kk & 1] two slices ago has completed
+          wgmma_wait<1>();
+          fence_regs(a[kk & 1]);
+          // and at the second slice, the previous stage's last product
+          if (kk == 1 && k > 0 && lane == 0) mbar_arrive(&empty[prev]);
+          Op::fragment(p, st + Q_BYTES, frow, lane, kk, a[kk & 1], rs0, rs1);
+          fence_regs(d);
+          wgmma_fence();
+          Op::mma(d, a[kk & 1], db + 2 * kk, (k > 0 || kk > 0) ? 1 : 0);
+          wgmma_commit();
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(d);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // a quad of lanes shares its rows: add up their sums
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+      const float cv0 = Op::row_value(p, rs0), cv1 = Op::row_value(p, rs1);
+
+      // accumulator layout of m64n256: register 4i + e of warp w, lane l is
+      // corpus row 16w + l/4 (+8 for e >= 2) and query 8i + 2(l%4) + (e & 1)
+      const int m0 = (tile % qtiles) * BQ;               // the tile's queries
+      const int n0 = (tile / qtiles) * BC + 64 * g;      // this group's rows
+      const int cq = 2 * (lane % 4);
+      if (tma_out) {
+        // 64 queries x 64 rows at a time through the staging tile: two
+        // swizzled 64 x 32 boxes, stored by the warpgroup's first thread
+#pragma unroll
+        for (int qc = 0; qc < 4; ++qc) {
+          if (tid % 128 == 0) bulk_wait_read();
+          named_sync(1 + g, 128);
+#pragma unroll
+          for (int ii = 0; ii < 8; ++ii) {
+            const int i = 8 * qc + ii;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qr = 8 * ii + cq + (e & 1);        // query in the box
+              const int col = 16 * w + lane / 4 + 8 * (e >> 1);
+              const float qv = Op::query_value(p, min(m0 + 64 * qc + qr,
+                                                      p.B - 1));
+              const typename Op::Out s =
+                  Op::score(p, d[4 * i + e], qv, e < 2 ? cv0 : cv1);
+              *reinterpret_cast<typename Op::Out*>(
+                  out_s + (col / 32) * OUT_BOX +
+                  sw128_chunk(qr, (col % 32) / 4) + 4 * (col % 4)) = s;
+            }
+          }
+          fence_proxy_async();
+          named_sync(1 + g, 128);
+          if (tid % 128 == 0 && n0 < p.N && m0 + 64 * qc < p.B) {
+            tma_store_2d(&omap, out_s, n0, m0 + 64 * qc);
+            tma_store_2d(&omap, out_s + OUT_BOX, n0 + 32, m0 + 64 * qc);
+            bulk_commit();
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = m0 + 8 * i + cq + (e & 1);
+            const int n = n0 + 16 * w + lane / 4 + 8 * (e >> 1);
+            if (q < p.B && n < p.N)
+              p.out[(size_t)q * p.N + n] = Op::score(
+                  p, d[4 * i + e], Op::query_value(p, q), e < 2 ? cv0 : cv1);
+          }
+        }
+      }
+    }
+    if (tid % 128 == 0) bulk_wait_all();
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  return fn;
+}
+
+// a 2-D row-major (rows, cols) tensor map with 128-byte swizzled boxes
+inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                      int elem_bytes, const void* ptr, int rows, int cols,
+                      int box_rows, int box_cols) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * elem_bytes};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch scan_kernel<Op> over the (B, N) output.  `q` is the (B, kp)
+// query copy of `qtype` (bf16 or 8-bit), kp a multiple of one K step.
+// Returns a cudaError_t as int: the last error after the launch, or the
+// reason the launch was refused.
+template <class Op>
+int launch(const void* q, CUtensorMapDataType qtype, int elem_bytes, int kp,
+           const typename Op::Params& p, void* stream) {
+  if (p.B <= 0 || p.N <= 0) return int(cudaGetLastError());
+  const int kstep = ROW_BYTES / elem_bytes;
+  if (kp <= 0 || kp % kstep != 0 ||
+      (reinterpret_cast<uintptr_t>(q) % 16) != 0)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap qmap, omap;
+  if (!encode_2d(&qmap, qtype, elem_bytes, q, p.B, kp, BQ, kstep))
+    return int(cudaErrorInvalidValue);
+  // the output goes out by TMA where its rows are whole 16-byte units
+  const int tma_out = (p.N % 4) == 0 &&
+                      (reinterpret_cast<uintptr_t>(p.out) % 16) == 0;
+  if (tma_out && !encode_2d(&omap, Op::OUT_TYPE, 4, p.out, p.B, p.N, 64, 32))
+    return int(cudaErrorInvalidValue);
+
+  const int bytes = 1024 + Layout<Op>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return int(e);
+  const int qtiles = (p.B + BQ - 1) / BQ;
+  const long long tiles = (long long)qtiles * ((p.N + BC - 1) / BC);
+  if (tiles > 0x7FFFFFFFLL) return int(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = int(tiles < sms ? tiles : sms);   // persistent blocks
+  scan_kernel<Op><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
+      qmap, omap, p, int(tiles), qtiles, kp / kstep, tma_out);
+  return int(cudaGetLastError());
+}
+
+}  // namespace fpv

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA sources (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, named by a hash of the source and the flags, in
+with a plain C interface, named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, in
 ``<repo>/build/kernels`` (listed in ``.gitignore``), and bound with
 ``ctypes``.  Nothing is compiled when a module is imported: a wrapper
 calls ``CudaSource.load()`` at its first launch, and ``build_all()`` starts
@@ -52,7 +53,9 @@ class CudaSource:
         self._proc: Optional[subprocess.Popen] = None
 
     def _so(self) -> Path:
-        tag = hashlib.sha256(self.source.read_bytes()
+        # the shared headers (csrc/*.cuh) are part of every source
+        deps = [self.source, *sorted(CSRC.glob("*.cuh"))]
+        tag = hashlib.sha256(b"".join(p.read_bytes() for p in deps)
                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}_{tag}.so"
 

@@ -4,9 +4,10 @@
 
 Each entry has two versions:
 
-  * the hand-written Hopper kernel in ``csrc/hamming_scores.cu`` (XOR +
-    popcount, one templated kernel with an f32 and an int32 entry), built
-    with ``nvcc`` at first use and bound with ``ctypes``;
+  * the hand-written Hopper kernel in ``csrc/hamming_scores.cu`` (the
+    count as an exact +-1 int8 tensor-core product, one templated kernel
+    with an f32 and an int32 entry), built with ``nvcc`` at first use and
+    bound with ``ctypes``;
   * a plain PyTorch version of the same count (``*_plain``).
 
 Both take the codes as the snapshot keeps them: row-major (N, W) packed
@@ -14,9 +15,11 @@ Both take the codes as the snapshot keeps them: row-major (N, W) packed
 package's uint32; torch's uint32 lacks shifts on the CPU), and the queries
 as packed (B, W) words.  The TPU kernels' word-major transposed copies and
 their 8 / 1024 / 2048 padding are not ported: the CUDA kernel reads the
-row-major codes and masks its own ragged B, N and W.  ``hamming_mxu_scores``
-takes packed query words too, not the TPU kernel's +-1 bf16 block: it
-returns the same count, (32W - q.c)/2, as f32.
+row-major codes and masks its own ragged B and N.  Both entries take packed
+query words, not the TPU kernel's +-1 bf16 block: the wrapper expands them
+once per call into the +-1 int8 operand the kernel loads with TMA
+(``pm1_queries``), and the kernel expands the corpus words the same way
+and returns the count (32W - q.c)/2.
 
 The wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches the kernel or raises; nothing falls back.
@@ -32,7 +35,8 @@ from .quant_kernels import check_cuda
 
 LAUNCHES = {"hamming_mxu_scores": 0, "hamming_scores": 0}
 
-_ARGS = [P] * 3 + [I] * 3 + [P]
+KSTEP = 128         # +-1 int8 positions in one K step of the kernel
+_ARGS = [P] * 3 + [I] * 4 + [P]
 SOURCE = CudaSource("hamming_scores", {"fpv_hamming_mxu_scores": _ARGS,
                                        "fpv_hamming_scores": _ARGS})
 
@@ -65,6 +69,18 @@ def hamming_mxu_scores_plain(qcodes: torch.Tensor, codes: torch.Tensor
     return hamming_scores_plain(qcodes, codes).float()
 
 
+def pm1_queries(qcodes: torch.Tensor) -> torch.Tensor:
+    """(B, W) packed int32 words -> (B, Kp) int8: bit j of word w at
+    position 32w + j as +1 (set) or -1 (clear), zero past 32W, Kp the
+    next multiple of ``KSTEP``.  (32W - a.b) / 2 of two such rows is their
+    Hamming distance: the padding is zero on one side at least."""
+    b, w = qcodes.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=qcodes.device)
+    bits = (qcodes[:, :, None] >> shifts) & 1
+    pm = (2 * bits - 1).to(torch.int8).reshape(b, 32 * w)
+    return torch.nn.functional.pad(pm, (0, (-32 * w) % KSTEP)).contiguous()
+
+
 def _launch(entry: str, qcodes: torch.Tensor, codes: torch.Tensor,
             dtype: torch.dtype) -> torch.Tensor:
     n, w = codes.shape
@@ -73,13 +89,14 @@ def _launch(entry: str, qcodes: torch.Tensor, codes: torch.Tensor,
     if qcodes.device != codes.device:
         raise ValueError(f"{entry}: operands on different devices")
     b = qcodes.shape[0]
+    qpm = pm1_queries(qcodes)
     out = torch.empty((b, n), dtype=dtype, device=codes.device)
     lib = SOURCE.load()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, "fpv_" + entry)(
-            qcodes.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, w,
-            stream)
+            qpm.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, w,
+            qpm.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES[entry] += 1

@@ -12,12 +12,19 @@ CUDA tensor it launches the kernel or raises — a failed build, a refused
 launch or a missing toolkit is an error, never a silent fallback.
 ``LAUNCHES`` counts kernel launches (plain calls do not count).
 
-Unlike the Pallas callers, nothing is padded: the CUDA kernel masks its own
-ragged B, N and D edges, so the TPU's 8/128/1024 padding helpers
-(``Int4Quantizer.pallas_layout`` / ``pallas_query``) are not ported.
+Unlike the Pallas callers, neither B nor N is padded and the codes are
+read as they are: the CUDA kernel masks its own ragged B and N edges, so
+the TPU's 8/128/1024 padding helpers (``Int4Quantizer.pallas_layout`` /
+``pallas_query``) are not ported.  What the wrapper does make, once per
+call, are two small tables in the kernel's dimension order
+(``kernel_dims``): the bf16 query copy that the kernel loads with TMA
+(``kernel_query``, zero past the true width) and the (rscale, vmin) pairs
+(``kernel_scales``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,7 +35,8 @@ LAUNCHES = {"sq_scores": 0, "int4_scores": 0}
 
 METRIC_CODE = {DistanceMetric.COSINE: 0, DistanceMetric.L2: 1,
                DistanceMetric.DOT: 2}
-_ARGS = [P] * 6 + [I] * 4 + [P]
+KSTEP = 64          # bf16 dims in one K step of the kernel (128 bytes)
+_ARGS = [P] * 5 + [I] * 5 + [P]
 SOURCE = CudaSource("quant_scores", {"fpv_sq_scores": _ARGS,
                                      "fpv_int4_scores": _ARGS})
 
@@ -98,25 +106,58 @@ def check_cuda(name, dtype, t, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(entry, counter, q_in, qsq, codes, vmin, rscale, n, cols_arg,
+@functools.lru_cache(maxsize=64)
+def kernel_dims(kind: str, width: int, device: str = "cpu") -> torch.Tensor:
+    """The true dim that each K position of the kernel reads, -1 where it
+    is zero padding; the length is a multiple of ``KSTEP``.
+
+    int8 (``width`` = D): the natural order.  int4 (``width`` = W, the
+    packed row): K step j reads code bytes 32j .. 32j + 31, and position
+    64j + 2i + h is nibble h of byte 32j + i, dim 32j + i + h * W (the
+    halves layout's two dims of one byte sit side by side)."""
+    if kind == "int8":
+        d = torch.arange(-(-width // KSTEP) * KSTEP)
+        return torch.where(d < width, d, -1).to(device)
+    byte = torch.arange(-(-width // 32) * 32)[:, None]
+    dims = byte + torch.arange(2)[None, :] * width
+    return torch.where(byte < width, dims, -1).reshape(-1).to(device)
+
+
+def kernel_query(q_in: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
+    """(B, Kp) bf16 copy of the prepared queries in the kernel's order,
+    zero where ``dims`` is -1: the operand the kernel loads with TMA."""
+    q = q_in.float()[:, dims.clamp(min=0)]
+    return torch.where(dims[None, :] >= 0, q, 0.0).bfloat16().contiguous()
+
+
+def kernel_scales(rscale: torch.Tensor, vmin: torch.Tensor,
+                  dims: torch.Tensor) -> torch.Tensor:
+    """(Kp, 2) f32 (rscale, vmin) per K position, zero at padding (so a
+    padding position dequantises to 0)."""
+    sv = torch.stack([rscale.float(), vmin.float()], dim=1)[dims.clamp(min=0)]
+    return torch.where(dims[:, None] >= 0, sv, 0.0).contiguous()
+
+
+def _launch(entry, counter, kind, q_in, qsq, codes, vmin, rscale, width,
             metric):
     b, de = q_in.shape
-    q_in = q_in.contiguous()
-    vmin = vmin.float().contiguous()
-    rscale = rscale.float().contiguous()
-    for name, t, shape in (("vmin", vmin, (de,)), ("rscale", rscale, (de,)),
-                           ("qsq", qsq, (b,))):
-        check_cuda(name, torch.float32, t, shape)
+    n = codes.shape[0]
+    for name, t in (("vmin", vmin), ("rscale", rscale)):
+        check_cuda(name, torch.float32, t.float().contiguous(), (de,))
+    check_cuda("qsq", torch.float32, qsq, (b,))
     if q_in.device != codes.device:
         raise ValueError("queries and codes are on different devices")
+    dims = kernel_dims(kind, width, str(codes.device))
+    qk = kernel_query(q_in, dims)
+    sv = kernel_scales(rscale, vmin, dims)
     out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
     lib = SOURCE.load()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(
-            q_in.data_ptr(), codes.data_ptr(), vmin.data_ptr(),
-            rscale.data_ptr(), qsq.data_ptr(), out.data_ptr(),
-            b, n, cols_arg, METRIC_CODE[metric], stream)
+            qk.data_ptr(), codes.data_ptr(), sv.data_ptr(), qsq.data_ptr(),
+            out.data_ptr(), b, n, width, dims.numel(), METRIC_CODE[metric],
+            stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES[counter] += 1
@@ -135,8 +176,8 @@ def sq_scores(queries: torch.Tensor, codes: torch.Tensor, vmin: torch.Tensor,
     q_in, qsq = _prep_queries(queries, metric)
     check_cuda("queries", torch.float32, q_in.contiguous(),
                (q_in.shape[0], d))
-    return _launch("fpv_sq_scores", "sq_scores", q_in, qsq, codes, vmin,
-                   scale.float() / 255.0, n, d, metric)
+    return _launch("fpv_sq_scores", "sq_scores", "int8", q_in, qsq, codes,
+                   vmin, scale.float() / 255.0, d, metric)
 
 
 def int4_scores(queries: torch.Tensor, packed: torch.Tensor,
@@ -152,5 +193,5 @@ def int4_scores(queries: torch.Tensor, packed: torch.Tensor,
     q_in, qsq = _prep_queries(queries, metric)
     check_cuda("queries", torch.float32, q_in.contiguous(),
                (q_in.shape[0], 2 * w))
-    return _launch("fpv_int4_scores", "int4_scores", q_in, qsq, packed, vmin,
-                   scale.float() / 15.0, n, w, metric)
+    return _launch("fpv_int4_scores", "int4_scores", "int4", q_in, qsq,
+                   packed, vmin, scale.float() / 15.0, w, metric)

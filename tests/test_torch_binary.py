@@ -85,6 +85,34 @@ def test_hamming_scores_plain_matches_pallas(n, d, b):
         tb.hamming_distances_t(tb.encode(q), tb.encode(v).T).numpy(), want)
 
 
+@pytest.mark.parametrize("n,d,b", [(100, 20, 5), (130, 768, 9),
+                                   (70, 1500, 13)])
+def test_pm1_queries_give_hamming_counts(n, d, b):
+    """The +-1 int8 expansion the CUDA kernel multiplies (W 1 / 24 / 47):
+    (32W - a+- . c+-) / 2 with ``pm1_queries`` on both sides equals
+    ``hamming_scores_plain`` and the Pallas ``hamming_mxu_scores``."""
+    v, q = _data(n, d, b, seed=d)
+    tb = TBinary(device="cpu").train(v)
+    qc, codes = tb.encode(q), tb.encode(v)
+    w = codes.shape[1]
+    qpm, cpm = hk.pm1_queries(qc), hk.pm1_queries(codes)
+    assert qpm.dtype == torch.int8 and qpm.shape == (b, qpm.shape[1])
+    assert qpm.shape[1] % hk.KSTEP == 0 and 0 <= qpm.shape[1] - 32 * w \
+        < hk.KSTEP
+    assert (qpm[:, 32 * w:] == 0).all() and (qpm[:, :32 * w] != 0).all()
+    got = (32 * w - qpm.int() @ cpm.int().T) // 2
+    np.testing.assert_array_equal(got.numpy(),
+                                  hk.hamming_scores_plain(qc, codes).numpy())
+    jb = JBinary().train(v)
+    codes_t = jnp.pad(jnp.asarray(jb.encode(v)).T, ((0, 0), (0, (-n) % 128)))
+    bits = np.pad(q > np.asarray(jb.thresholds)[None, :],
+                  ((0, (-b) % 8), (0, w * 32 - d)))
+    want = np.asarray(pallas_quant.hamming_mxu_scores(
+        jnp.asarray(2.0 * bits - 1.0, dtype=jnp.bfloat16), codes_t,
+        tile_n=128, interpret=True))[:b, :n]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_cpu_tensors_use_plain_version_and_count_nothing():
     v, q = _data()
     tb = TBinary(device="cpu").train(v)
@@ -402,7 +430,8 @@ def test_enable_quantized_scan_accepts_and_ignores_unknown_kwargs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d", [(1, 64, 16), (13, 1000, 41),
                                    (70, 3001, 130), (64, 4096, 768),
-                                   (13, 1000, 1500)])
+                                   (13, 1000, 1500), (200, 1000, 32),
+                                   (200, 3001, 768), (70, 1000, 1500)])
 def test_cuda_hamming_kernels_match_plain(b, n, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

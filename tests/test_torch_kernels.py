@@ -13,6 +13,7 @@ import torch
 
 from fastpyvectordb_tpu.quant.int4 import Int4Quantizer as JInt4
 from fastpyvectordb_tpu.quant.scalar import ScalarQuantizer as JScalar
+from fastpyvectordb_tpu_torch.core.types import DistanceMetric
 from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
 
 METRICS = ["cosine", "l2", "ip"]
@@ -110,30 +111,90 @@ def test_non_cpu_tensor_never_falls_back(fn):
            metric="cosine")
 
 
+def _emulate_kernel(kind, q_in, qsq, codes, rscale, vmin, metric):
+    """The CUDA kernel's arithmetic, K position by K position, from the
+    wrapper's tables.  The codes are read as the producer reads them:
+    int8 position p is byte p (+128); int4 position p is nibble p % 2 of
+    byte p // 2 (K step j = bytes 32j .. 32j + 31).  Bytes past the row
+    read 0."""
+    width = codes.shape[1]
+    dims = qk.kernel_dims(kind, width)
+    qk_ = qk.kernel_query(q_in, dims)
+    sv = qk.kernel_scales(rscale, vmin, dims)
+    p = torch.arange(dims.numel())
+    byte = p if kind == "int8" else p // 2
+    raw = codes.view(torch.uint8)[:, byte.clamp(max=width - 1)].int()
+    raw = torch.where(byte[None, :] < width, raw, 0)
+    code = (raw ^ 0x80) if kind == "int8" else (raw >> (4 * (p % 2))) & 0xF
+    v = code.float() * sv[:, 0] + sv[:, 1]
+    cross = qk_.float() @ v.bfloat16().float().T
+    return qk._epilogue(cross, v, qsq, DistanceMetric.parse(metric))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("d", [41, 64, 130])
+def test_kernel_tables_pad_and_order_dims(kind, d):
+    """``kernel_dims`` / ``kernel_query`` / ``kernel_scales``: every true
+    dim once, zero padding to a multiple of the K step, and the kernel's
+    reading of the codes in that order gives the plain version's scores
+    (which the tests above hold against the Pallas kernels)."""
+    v, q = _data(13, 300, d, seed=d)
+    jq = (JScalar if kind == "int8" else JInt4)().train(v)
+    codes = torch.as_tensor(np.array(jq.encode(v)))
+    de = d if kind == "int8" else 2 * codes.shape[1]
+    dims = qk.kernel_dims(kind, codes.shape[1])
+    assert dims.numel() % qk.KSTEP == 0 and 0 <= dims.numel() - de < qk.KSTEP
+    assert torch.equal(dims[dims >= 0].sort().values, torch.arange(de))
+    qe = torch.as_tensor(np.pad(q, ((0, 0), (0, de - d))))
+    qcopy = qk.kernel_query(qe, dims)
+    assert qcopy.dtype == torch.bfloat16 and qcopy.shape == (13, dims.numel())
+    assert (qcopy[:, dims < 0] == 0).all()
+    assert torch.equal(qcopy[:, dims >= 0], qe[:, dims[dims >= 0]].bfloat16())
+    vmin = torch.as_tensor(np.array(jq.vmin))
+    scale = torch.as_tensor(np.array(jq.scale))
+    rscale = scale / (255.0 if kind == "int8" else 15.0)
+    assert (qk.kernel_scales(rscale, vmin, dims)[dims < 0] == 0).all()
+    plain = qk.sq_scores_plain if kind == "int8" else qk.int4_scores_plain
+    for metric in METRICS:
+        want = plain(qe, codes, vmin, scale, metric=metric).numpy()
+        q_in, qsq = qk._prep_queries(qe, DistanceMetric.parse(metric))
+        got = _emulate_kernel(kind, q_in, qsq, codes, rscale, vmin,
+                              metric).numpy()
+        np.testing.assert_allclose(got, want, atol=_tol(want), rtol=0)
+
+
+# (B, N, D) on the card: B 1 / 13 / 70 / 200 (one and two query tiles),
+# N off the 128-row tile, D 41 / 130 / 1500 (odd W = 21, 65 for int4, and
+# a second pass of the 2-stage scale table)
+CUDA_SHAPES = [(37, 2100, 41), (1, 64, 16), (13, 1000, 41), (70, 3001, 130),
+               (200, 1000, 1500)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
 def test_cuda_kernels_match_plain(metric):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    v, q = _data(37, 2100, 41)
-    for name, kern, plain in (("sq_scores", qk.sq_scores,
-                               qk.sq_scores_plain),
-                              ("int4_scores", qk.int4_scores,
-                               qk.int4_scores_plain)):
-        jq = (JScalar if name == "sq_scores" else JInt4)().train(v)
-        codes = torch.as_tensor(np.array(jq.encode(v))).cuda()
-        de = 2 * codes.shape[1] if name == "int4_scores" else 41
-        qc = torch.as_tensor(np.pad(q, ((0, 0), (0, de - 41)))).cuda()
-        vmin = torch.as_tensor(np.array(jq.vmin)).cuda()
-        scale = torch.as_tensor(np.array(jq.scale)).cuda()
-        n0 = qk.LAUNCHES[name]
-        got = kern(qc, codes, vmin, scale, metric=metric)
-        want = plain(qc, codes, vmin, scale, metric=metric)
-        torch.cuda.synchronize()
-        assert qk.LAUNCHES[name] == n0 + 1
-        # same bf16 operands, f32 sums in another order
-        tol = 1e-3 * max(want.abs().max().item(), 1.0)
-        assert (got - want).abs().max().item() <= tol
+    for b, n, d in CUDA_SHAPES:
+        v, q = _data(b, n, d)
+        for name, kern, plain in (("sq_scores", qk.sq_scores,
+                                   qk.sq_scores_plain),
+                                  ("int4_scores", qk.int4_scores,
+                                   qk.int4_scores_plain)):
+            jq = (JScalar if name == "sq_scores" else JInt4)().train(v)
+            codes = torch.as_tensor(np.array(jq.encode(v))).cuda()
+            de = 2 * codes.shape[1] if name == "int4_scores" else d
+            qc = torch.as_tensor(np.pad(q, ((0, 0), (0, de - d)))).cuda()
+            vmin = torch.as_tensor(np.array(jq.vmin)).cuda()
+            scale = torch.as_tensor(np.array(jq.scale)).cuda()
+            n0 = qk.LAUNCHES[name]
+            got = kern(qc, codes, vmin, scale, metric=metric)
+            want = plain(qc, codes, vmin, scale, metric=metric)
+            torch.cuda.synchronize()
+            assert qk.LAUNCHES[name] == n0 + 1
+            # same bf16 operands, f32 sums in another order
+            tol = 1e-3 * max(want.abs().max().item(), 1.0)
+            assert (got - want).abs().max().item() <= tol, (name, b, n, d)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where the time of the Hopper scan goes: time ``int4_scores`` and
+``hamming_mxu_scores`` at the two-stage paths' B=1024 x 1M x 768 with parts
+of ``csrc/hopper_scan.cuh`` switched off, on one CUDA card.
+
+    python3 tools/kernel_variants.py
+
+Each variant is a copy of ``csrc/`` under ``build/kernel_variants/<name>``
+with one or more lines replaced (the outputs of such a copy are wrong; only
+its time means something), built with the port's nvcc flags and timed in a
+child process of its own with a time limit, in two rounds:
+
+  base       the sources as they are
+  no_expand  the consumers never expand the codes into their fragments
+  no_tma     the query tile is never loaded (the barrier is arrived on)
+  no_store   the epilogue stages the scores but never stores them
+  no_mma     the consumers issue no wgmma
+  no_tma_no_expand   both
+
+Prints one line a variant and round, then the card's nvidia-smi name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+CSRC = ROOT / "fastpyvectordb_tpu_torch" / "csrc"
+OUT = ROOT / "build" / "kernel_variants"
+
+TMA = """        if (r == 0) {
+          mbar_arrive_tx(&full[stage], Q_BYTES);
+          tma_load_2d(st, &qmap, &full[stage], k * Op::KSTEP_ELEMS,
+                      (tile % qtiles) * BQ);
+        }"""
+NO_TMA = "        if (r == 0) mbar_arrive(&full[stage]);"
+EXPAND = """          Op::fragment(p, st + Q_BYTES, frow, lane, kk, a[kk & 1], rs0, rs1);"""
+NO_EXPAND = """          a[kk & 1][0] = a[kk & 1][1] = a[kk & 1][2] = a[kk & 1][3] = 0x3F803F80u;"""
+STORE = """            tma_store_2d(&omap, out_s, n0, m0 + 64 * qc);
+            tma_store_2d(&omap, out_s + OUT_BOX, n0 + 32, m0 + 64 * qc);"""
+MMA = """          Op::mma(d, a[kk & 1], db + 2 * kk, (k > 0 || kk > 0) ? 1 : 0);"""
+VARIANTS = {
+    "base": [],
+    "no_expand": [(EXPAND, NO_EXPAND)],
+    "no_tma": [(TMA, NO_TMA)],
+    "no_store": [(STORE, "")],
+    "no_mma": [(MMA, "")],
+    "no_tma_no_expand": [(TMA, NO_TMA), (EXPAND, NO_EXPAND)],
+}
+SOURCES = ("quant_scores", "hamming_scores")
+
+
+def build() -> None:
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    procs = []
+    for name, subs in VARIANTS.items():
+        d = OUT / name
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(CSRC, d)
+        header = (d / "hopper_scan.cuh").read_text()
+        for old, new in subs:
+            if old not in header:
+                raise SystemExit(f"{name}: the text to replace is gone from "
+                                 "hopper_scan.cuh")
+            header = header.replace(old, new)
+        (d / "hopper_scan.cuh").write_text(header)
+        for src in SOURCES:
+            procs.append(subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                 str(d / f"lib{src}.so"), str(d / f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(out)
+
+
+def time_variant(name: str, rnd: str) -> None:
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    from fastpyvectordb_tpu_torch.quant.binary import BinaryQuantizer
+    from fastpyvectordb_tpu_torch.quant.int4 import Int4Quantizer
+    for src, mod in zip(SOURCES, (qk, hk)):
+        lib = ctypes.CDLL(str(OUT / name / f"lib{src}.so"))
+        for fn, argtypes in mod.SOURCE.signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        mod.SOURCE._lib = lib
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = torch.randn((1_000_000, 768), generator=gen, device="cuda")
+    q = torch.randn((1024, 768), generator=gen, device="cuda")
+    i4 = Int4Quantizer()
+    i4.train(rows[:65_536])
+    packed = i4.encode(rows)
+    bq = BinaryQuantizer(device="cuda").train(rows[:65_536])
+    qc, words = bq.encode(q), bq.encode(rows)
+    del rows
+
+    def ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    t4 = ms(lambda: qk.int4_scores(q, packed, i4.vmin, i4.scale,
+                                   metric="cosine"))
+    t5 = ms(lambda: hk.hamming_mxu_scores(qc, words))
+    print(f"round {rnd} {name:18s} int4_scores {t4:.4f} ms  "
+          f"hamming_mxu_scores {t5:.4f} ms", flush=True)
+
+
+def main() -> None:
+    if len(sys.argv) == 3:
+        time_variant(sys.argv[1], sys.argv[2])
+        return
+    build()
+    for rnd in range(2):
+        for name in VARIANTS:
+            try:
+                subprocess.run([sys.executable, __file__, name, str(rnd)],
+                               timeout=120, check=False)
+            except subprocess.TimeoutExpired:
+                print(f"round {rnd} {name}: timed out", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()
