@@ -24,7 +24,9 @@ passed.  The last lines are a JSON object of per-kernel numbers (launches
 on the path, kernel, plain-version and nearest-library-call times, the
 bound computed from the timed shape and what sets it), the card's
 ``nvidia-smi`` name and power limit, and the result line
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+``{"ok": true, "device": {...}}``.  The entries of B2, B3 and B7 also say
+which design ran at the timed shape (the run fails unless the main path's
+operands went to the TMA / wgmma cell stream).  Without a CUDA card, or without the
 package beside this script, it exits non-zero and prints no result.
 """
 
@@ -686,6 +688,31 @@ def check_ivf_kernel(name, kern, plain, args, metric, rtol):
     return err, tol
 
 
+# B2 / B3 (nlist, U, n_uniq, qcap, cmax, D): every tile height of the
+# first-slice kernel (D 41 / 130, and int8 D 72: rows TMA cannot address),
+# and on the cell stream qcap 8 / 16 / 40 / 64 / 256, two non-powers of two
+# above 256 (a second pass of slots), cmax off the 128-row tile and off the
+# 4-float store unit, D off the 128-byte K step; n_uniq < U throughout
+IVF_RAGGED = ((7, 5, 3, 8, 200, 41), (9, 6, 4, 8, 128, 130),
+              (6, 4, 3, 16, 72, 96), (5, 4, 2, 40, 130, 64),
+              (6, 4, 3, 8, 200, 64), (5, 4, 3, 64, 136, 768),
+              (5, 4, 2, 256, 640, 128), (4, 3, 2, 408, 260, 72),
+              (4, 3, 2, 300, 130, 96))
+# B7 (nlist, U, n_uniq, qcap, cmax, M, K, B, loads of the compact rows or
+# None for random ones): loads 0 / 1 / a full 32-slot tile / one past it /
+# saturated and every tail width; M off the staged chunk; cmax 72 / 768 /
+# 1100 (two cmax tiles), 130 (no 4-byte copies); K 16 / 64 / 256 and an
+# odd K 13 (no 4-byte copies either)
+PQ_RAGGED = ((7, 5, 3, 8, 72, 1, 16, 20, None),
+             (9, 6, 4, 40, 768, 8, 256, 50, None),
+             (6, 4, 3, 8, 200, 96, 256, 30, None),
+             (5, 4, 2, 40, 130, 8, 16, 10, None),
+             (4, 3, 3, 16, 1100, 12, 64, 9, None),
+             (5, 4, 3, 16, 100, 5, 13, 7, None),
+             (8, 6, 5, 72, 768, 7, 256, 50, (0, 1, 32, 33, 72, 17)),
+             (8, 6, 6, 40, 72, 40, 16, 20, (0, 1, 32, 33, 40, 9)),
+             (8, 6, 5, 344, 1100, 12, 64, 64, (344, 0, 1, 33, 20, 100)))
+
 IVF_LIBRARY = {
     False: "torch.bmm(q_slots, cells[ids].transpose(1, 2), "
            "out_dtype=torch.float32) of cells gathered beforehand",
@@ -783,25 +810,29 @@ def phase_ivf(col, bf, queries, tune_queries, timing_batches, truth,
                     f"n_uniq={int(args[0][0])} qcap={qcap} "
                     f"cmax={ann.cells.shape[1]} D={d} {metric}: "
                     f"max_abs_err {err:.3g} (tol {tol:.3g})")
-            # (nlist, U, n_uniq, qcap, cmax, D): every tile height
-            for shape in ((7, 5, 3, 8, 200, 41), (9, 6, 4, 8, 128, 130),
-                          (6, 4, 3, 16, 72, 96), (5, 4, 2, 40, 130, 64)):
+            for shape in IVF_RAGGED:
                 rargs = ragged_case(gen, *shape, int8, metric)
                 err, tol = check_ivf_kernel(name, kern, plain, rargs, metric,
                                             rtol)
-                log(f"[kernels] {name} {shape} {metric}: max_abs_err {err:.3g} "
-                    f"(tol {tol:.3g})")
+                log(f"[kernels] {name} {shape} {metric} "
+                    f"({ik.grouped_design(rargs[1], rargs[2])}): max_abs_err "
+                    f"{err:.3g} (tol {tol:.3g})")
         args = ivf_kernel_case(ann, queries, "cosine", ann.nprobe)
+        design = ik.grouped_design(args[1], args[2])
+        if design != "tma_wgmma":
+            raise AssertionError(f"{name}: the main path's operands went to "
+                                 f"the {design} kernel")
         ms = cuda_ms(lambda: kern(*args, metric="cosine"))
         plain_ms = cuda_ms(lambda: plain(*args, metric="cosine"))
         bnd = ivf_bound(args, int8)
         library_ms = None if int8 else cuda_ms(ivf_library(args))
-        log(f"[kernels] {name} main path nprobe {ann.nprobe} cosine: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms} ms, "
-            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        log(f"[kernels] {name} main path nprobe {ann.nprobe} cosine "
+            f"({design}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library_ms} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
         out[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": library_ms,
-                     "library": IVF_LIBRARY[int8], **bnd}
+                     "library": IVF_LIBRARY[int8], "design": design, **bnd}
     return out, launches
 
 
@@ -877,9 +908,10 @@ def ivfpq_kernel_case(ann, queries, nprobe: int):
     return args
 
 
-def pq_ragged_case(gen, nlist, u, n_uniq, qcap, cmax, m, kk, b):
-    """Synthetic B7 operands at a ragged shape, with empty slots and a
-    padding tail (compact slots past n_uniq alias cell 0)."""
+def pq_ragged_case(gen, nlist, u, n_uniq, qcap, cmax, m, kk, b, loads=None):
+    """Synthetic B7 operands at a ragged shape, with empty slots (each
+    compact row's live slots a prefix, ``loads`` of them or a random count)
+    and a padding tail (compact slots past n_uniq alias cell 0)."""
     import torch
     rnd = dict(generator=gen, device="cuda")
     ids = torch.randperm(nlist, **rnd)[:u].int()
@@ -888,6 +920,8 @@ def pq_ragged_case(gen, nlist, u, n_uniq, qcap, cmax, m, kk, b):
                                        dtype=torch.int32), ids])
     lut = torch.randn((b, m * kk), **rnd).bfloat16()
     load = torch.randint(1, qcap + 1, (u, 1), **rnd)
+    if loads is not None:
+        load = torch.tensor(loads, device="cuda")[:u, None]
     qslot = torch.where(torch.arange(qcap, device="cuda")[None, :] < load,
                         torch.randint(0, b, (u, qcap), **rnd), -1).int()
     codes_t = torch.randint(0, kk, (nlist, m, cmax), dtype=torch.uint8,
@@ -920,13 +954,32 @@ def pq_bound(args) -> dict:
     """B7 at the path's operands: the ADC tables, the slot table and the
     probed cells' codes in, one f32 per filled slot and cell row out; one
     f32 add per (filled slot, cell row, subspace)."""
+    import torch
     cell_ids, lut, qslot, codes_t = args
     n = int(cell_ids[0])
     _, m, cmax = codes_t.shape
     filled = int((qslot[:n] >= 0).sum())
     nbytes = (4 * cell_ids.numel() + 2 * lut.numel() + 4 * n * qslot.shape[1]
               + n * m * cmax + 4 * filled * cmax)
-    return bound(nbytes, float(filled) * cmax * m, "f32")
+    out = bound(nbytes, float(filled) * cmax * m, "f32")
+    # beside the bound: the same lookups out of shared memory with no bank
+    # conflict, one 4-byte bank word a lane a clock on every SM
+    props = torch.cuda.get_device_properties(0)
+    out["lookup_ms"] = (float(filled) * cmax * m / (
+        props.multi_processor_count * 32 * sm_clock_hz()) * 1e3)
+    return out
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock."""
+    import torch
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", None)
+    if khz:
+        return khz * 1e3
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
@@ -1010,11 +1063,7 @@ def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
             f"M={args[3].shape[1]} K={args[1].shape[1] // args[3].shape[1]}:"
             f" max_abs_err {err:.3g} (tol {tol:.3g})")
     gen = torch.Generator(device="cuda").manual_seed(13)
-    # (nlist, U, n_uniq, qcap, cmax, M, K, B)
-    for shape in ((7, 5, 3, 8, 72, 1, 16, 20), (9, 6, 4, 40, 768, 8, 256, 50),
-                  (6, 4, 3, 8, 200, 96, 256, 30),
-                  (5, 4, 2, 40, 130, 8, 16, 10),
-                  (4, 3, 3, 16, 1100, 12, 64, 9)):
+    for shape in PQ_RAGGED:
         err, tol = check_pq_kernel(pq_ragged_case(gen, *shape))
         worst = max(worst, err)
         log(f"[kernels] grouped_cell_scores_pq {shape}: max_abs_err "
@@ -1024,12 +1073,13 @@ def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
     plain_ms = cuda_ms(lambda: ik.grouped_cell_scores_pq_plain(*args),
                        reps=3)
     bnd = pq_bound(args)
-    log(f"[kernels] grouped_cell_scores_pq main path nprobe {ann.nprobe}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    log(f"[kernels] grouped_cell_scores_pq main path nprobe {ann.nprobe} "
+        f"({ik.PQ_DESIGN}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), conflict-free "
+        f"shared-memory lookups {bnd['lookup_ms']:.4f} ms")
     return ({"grouped_cell_scores_pq": {
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": None,
+        "library_ms": None, "design": ik.PQ_DESIGN,
         "library": "none: no PyTorch call looks up a table through a slot "
                    "table", **bnd}}, launches)
 

@@ -8,8 +8,8 @@
 //   fpv_grouped_cell_scores_i8 <- grouped_cell_scores_i8 (_kernel_i8):
 //                                 s8 slots x s8 cells, s32 accumulation, then
 //                                 cross = float(cross_i) * sscale + sconst
-// One templated kernel; the two entries differ in the operand type and in
-// the first step of the epilogue.
+// Each kernel is one template; the two entries differ in the operand type
+// and in the first step of the epilogue.
 //
 // What it computes, for each compact slot u < cell_ids[0] (the batch's
 // unique probed cells; cell = cell_ids[1 + u]), query slot s < qcap and cell
@@ -21,53 +21,86 @@
 //   then MASKED (3e38) where okf[cell, c] <= 0.5.
 // Rows u >= cell_ids[0] are left unwritten (the caller never reads them).
 //
-// Grid: one 128-thread block per (compact slot u, 128-row cmax tile, tile of
-// query slots), flattened with the query-slot tile fastest, so the blocks
-// that share a cell tile run back to back and all but the first read it
-// from L2.  The block reads cell_ids[0] itself and returns at once past
-// the unique count (the TPU kernel's scalar prefetch + pl.when), so no host
-// sync learns n_uniq; it loads its own cell id and offsets into the full
-// (nlist, cmax, D) table, so only probed cells are read.  Ragged D, cmax and
-// qcap edges are masked here (zero-filled operands, unwritten outputs): any
-// shape is taken, none of the TPU's 128/8 alignment is needed.
+// Two kernels live here.  The launcher takes the cell stream below for every
+// shape TMA can address (row pitch D * sizeof(T) a multiple of 16 bytes,
+// 16-byte aligned bases: stream_ok) and the first-slice kernel (namespace
+// first_slice, nvcuda::wmma, global -> registers -> shared loads) for the
+// rest, by that explicit test of the operands and never on a failure.
 //
-// Tile rows follow qcap (a power of two from grouped_qcap): 8 rows
-// (wmma 8x32x16) for qcap <= 8, 16 for <= 16, 32 for <= 32, and 64-row tiles
-// side by side above that, so at most half of a tile is padding.
+// The cell stream (namespace cell_stream): one persistent 384-thread block an SM
+// walks the work list (compact slot u, 128-row cmax tile, pass of NT query
+// slots); it reads cell_ids[0] itself (the TPU kernel's scalar prefetch +
+// pl.when), so no host sync learns n_uniq.
+//   * Warpgroup 2's first thread is the producer: for every 128-byte K step
+//     it issues two TMA loads into a ring of 128B-swizzled stages on
+//     mbarriers, the cell tile from a 3-D map over (nlist, cmax, D) with the
+//     cell id as a run-time coordinate (the gather cells[cell] costs
+//     nothing) and the slot tile from a 3-D map over (U, qcap, D).  A box
+//     never runs into the next cell or slot block, and TMA's zero fill masks
+//     the ragged cmax, qcap and D edges.
+//   * Warpgroups 0 and 1 are the consumers, 64 cell rows each.  Orientation:
+//     the cell rows are wgmma's M side and the query slots its N side (NT =
+//     16 ... 256 by qcap), both operands read from shared memory.  With the
+//     cells as M, a narrow qcap (8-32) wastes no tensor-core rows and the
+//     accumulators of the whole qcap (up to 256 slots a pass) fit one
+//     thread's registers, so every cell byte leaves device memory once and
+//     no second block reads it again.  The price is a transposed
+//     accumulator, paid in the epilogue's staging tile.
+//   * The epilogue runs from the accumulators: norms and okf of a thread's
+//     two cell rows are read once a tile into registers, qstat / sscale /
+//     sconst of the pass once a tile into shared memory; the same rounded,
+//     uncontracted operations as the plain version; scores go 64 slots x 64
+//     rows at a time through a swizzled staging tile (two in turn from
+//     128 slots a pass on) and out by TMA (3-D map over (U, qcap, cmax):
+//     clipped at the qcap and cmax edges), the last store draining under
+//     the next tile's products.  Where cmax is
+//     not a multiple of 4 (TMA needs 16-byte rows) they are stored from
+//     registers.
 //
-// What bounds it: at the main path's shape (U = 2048 probed cells, qcap 32,
-// cmax 640, D 768) the kernel streams the probed cells once, 1.0 GB of int8
-// or 2.0 GB of bf16 (0.3 / 0.6 ms at 3.35 TB/s), against 64 GFLOP of
-// products (0.07 ms at the bf16 tensor-core peak) and a 168 MB output: it
-// is bound by reading the cells.  This first version is simple and right:
-// each thread starts 16-byte loads of the next 64-byte slice of its rows
-// into registers before the tensor cores work on the current slice from
-// shared memory (double-buffered), with nvcuda::wmma tiles; TMA, wgmma and a
-// persistent grid are later work.  On an H100 80GB HBM3 (700 W) it streams
-// the probed cells at about 1.8 TB/s at qcap 32 (int8 0.54 ms, bf16
-// 1.09 ms); at qcap 64-128 the 64-row tiles and their epilogue halve that.
+// What bounds it: at the main path's shapes (U = 2048 probed cells, cmax 640,
+// D 768; bf16 at nprobe 32: qcap 128, int8 at nprobe 16: qcap 64) the kernel
+// streams the probed cells once (2.0 GB bf16 / 1.0 GB int8), the slots and
+// the output: bytes, not products.  On an H100 80GB HBM3 at 700 W the bf16
+// entry takes ~1.1 ms for its 3.09 GB (2.8 TB/s, 84% of the card's rate;
+// the first-slice kernel 2.34 ms) and the int8 entry 0.49 ms (0.84);
+// without the output stores 0.82 / 0.39 ms, without the products the same
+// as with them (tools/kernel_variants.py): what is left over the bound is
+// the epilogue, during which a block's ring fills and its loads pause.
 //
-// Shared-memory layout: each 64-byte row slice of a chunk is split by wmma
-// k-step into [k-step][row][16 elements], so every fragment pointer is
-// 32-byte aligned for both operand types (a 16-byte int8 k-step inside a
-// 64-byte row would not be).
+// The first-slice kernel: one 128-thread block per (compact slot u, 128-row
+// cmax tile, tile of query slots), flattened with the query-slot tile
+// fastest.  Tile rows follow qcap: 8 rows (wmma 8x32x16) for qcap <= 8, 16
+// for <= 16, 32 for <= 32, and 64-row tiles side by side above that.
+// Ragged D, cmax and qcap edges are masked there (zero-filled operands,
+// unwritten outputs): any shape is taken.  Its shared-memory layout: each
+// 64-byte row slice of a chunk is split by wmma k-step into
+// [k-step][row][16 elements], so every fragment pointer is 32-byte aligned
+// for both operand types.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 using namespace nvcuda;
 
 namespace {
+
+constexpr float MASKED = 3.0e38f;
+
+enum Metric { COSINE = 0, L2 = 1, DOT = 2 };
+
+// ---------------------------------------------------------------------------
+// the first-slice kernel: shapes TMA cannot address
+// ---------------------------------------------------------------------------
+namespace first_slice {
 
 constexpr int BN = 128;            // cell rows per block
 constexpr int THREADS = 128;       // 4 warps, each owning 32 cell rows
 constexpr int ROW_BYTES = 64;      // bytes of one operand row per chunk
 constexpr int VECS = ROW_BYTES / 16;  // 16-byte vectors per row per chunk
-constexpr float MASKED = 3.0e38f;
-
-enum Metric { COSINE = 0, L2 = 1, DOT = 2 };
 
 template <typename T> struct Op;
 template <> struct Op<__nv_bfloat16> { using Acc = float; using Raw = uint16_t; };
@@ -326,9 +359,420 @@ int launch(const int* ids, const T* q, const T* c, const float* norms,
   return int(cudaGetLastError());
 }
 
+}  // namespace first_slice
+
+// ---------------------------------------------------------------------------
+// the cell stream: TMA loads, wgmma from shared memory, TMA stores
+// ---------------------------------------------------------------------------
+namespace cell_stream {
+
+using namespace fpv;
+
+constexpr int BC = 128;                   // cell rows per tile (2 x m64)
+constexpr int ROW_BYTES = 128;            // one K step of an operand row
+constexpr int CELL_BYTES = BC * ROW_BYTES;
+constexpr int CONSUMERS = 256;            // two consumer warpgroups
+constexpr int PRODUCERS = 128;            // one producer warpgroup
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+// registers a thread after setmaxnreg; the two claims leave slack in the
+// SM's 65,536 (with none the consumers' claim can wait forever)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 224;
+static_assert(PRODUCERS * kProducerRegs + CONSUMERS * kConsumerRegs <=
+                  65536 - 2048, "register budget");
+constexpr int STAGING = 64 * 64 * 4;      // a consumer's 64 x 64 staging tile
+constexpr int TABLES = 3 * 256 * 4;       // its qstat, sscale, sconst of a pass
+constexpr int SMEM_MAX = 232448;          // what a block may opt in to
+// the cell table's map is given this many cells: the entry points are not
+// told nlist, and the compact list only names cells that exist
+constexpr int kAnyCells = 1 << 30;
+
+// shared memory: each consumer's staging tiles, two sets of slot tables, then
+// the ring (per stage the cell tile and the slot tile of one K step) and its
+// barriers.  From 128 slots a pass on, a tile's epilogue takes several
+// staging rounds and a consumer alternates two tiles, so that a round's
+// writes do not wait for the store before it (bf16, qcap 128: 1.18 -> 1.10
+// ms); below, one round a tile gains nothing from the second and the ring
+// is better off with its bytes (int8, qcap 64: 0.49 -> 0.54 ms with two).
+template <int NT>
+struct Layout {
+  static constexpr int STAGE = CELL_BYTES + NT * ROW_BYTES;
+#ifdef FPV_GROUPED_ONE_BUF   // (tools/kernel_variants.py measures without)
+  static constexpr int BUFS = 1;
+#else
+  static constexpr int BUFS = NT >= 128 ? 2 : 1;
+#endif
+  static constexpr int TAB = 2 * BUFS * STAGING;
+  static constexpr int RING = TAB + 2 * TABLES;
+  static constexpr int FIT = (SMEM_MAX - 1024 - RING - 256) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int BAR = RING + STAGES * STAGE;
+  static constexpr int BYTES = BAR + 2 * STAGES * 8;
+  static_assert(STAGE % 1024 == 0 && RING % 1024 == 0,
+                "stages keep the 1024-byte swizzle atoms");
+  static_assert(STAGES >= 3, "a ring");
+};
+
+// one m64nNTk(32 bytes) wgmma, both operands from shared memory
+template <typename T, int NT> struct Mma;
+
+#define FPV_MMA_SS(T, NT, ACC, SHAPE, DLIST, ARGS, A, B, P, TAIL)          \
+  template <> struct Mma<T, NT> {                                          \
+    static __device__ __forceinline__ void run(ACC (&d)[NT / 2],           \
+                                               uint64_t da, uint64_t db,   \
+                                               int acc) {                  \
+      asm volatile(                                                        \
+          "{\n"                                                            \
+          ".reg .pred p;\n"                                                \
+          "setp.ne.b32 p, " P ", 0;\n"                                     \
+          "wgmma.mma_async.sync.aligned." SHAPE " " DLIST ", " A ", " B    \
+          ", p" TAIL ";\n"                                                 \
+          "}\n"                                                            \
+          : ARGS                                                           \
+          : "l"(da), "l"(db), "r"(acc));                                   \
+    }                                                                      \
+  };
+
+#define FPV_BF __nv_bfloat16
+#define FPV_BF_TAIL ", 1, 1, 0, 0"
+FPV_MMA_SS(FPV_BF, 16, float, "m64n16k16.f32.bf16.bf16", FPV_D8,
+           FPV_ACC8(FPV_F, 0), "%8", "%9", "%10", FPV_BF_TAIL)
+FPV_MMA_SS(FPV_BF, 32, float, "m64n32k16.f32.bf16.bf16", FPV_D16,
+           FPV_ACC16(FPV_F, 0), "%16", "%17", "%18", FPV_BF_TAIL)
+FPV_MMA_SS(FPV_BF, 64, float, "m64n64k16.f32.bf16.bf16", FPV_D32,
+           FPV_ACC32(FPV_F, 0), "%32", "%33", "%34", FPV_BF_TAIL)
+FPV_MMA_SS(FPV_BF, 128, float, "m64n128k16.f32.bf16.bf16", FPV_D64,
+           FPV_ACC64(FPV_F, 0), "%64", "%65", "%66", FPV_BF_TAIL)
+FPV_MMA_SS(FPV_BF, 256, float, "m64n256k16.f32.bf16.bf16", FPV_D128,
+           FPV_ACC128(FPV_F), "%128", "%129", "%130", FPV_BF_TAIL)
+FPV_MMA_SS(signed char, 16, int, "m64n16k32.s32.s8.s8", FPV_D8,
+           FPV_ACC8(FPV_R, 0), "%8", "%9", "%10", "")
+FPV_MMA_SS(signed char, 32, int, "m64n32k32.s32.s8.s8", FPV_D16,
+           FPV_ACC16(FPV_R, 0), "%16", "%17", "%18", "")
+FPV_MMA_SS(signed char, 64, int, "m64n64k32.s32.s8.s8", FPV_D32,
+           FPV_ACC32(FPV_R, 0), "%32", "%33", "%34", "")
+FPV_MMA_SS(signed char, 128, int, "m64n128k32.s32.s8.s8", FPV_D64,
+           FPV_ACC64(FPV_R, 0), "%64", "%65", "%66", "")
+FPV_MMA_SS(signed char, 256, int, "m64n256k32.s32.s8.s8", FPV_D128,
+           FPV_ACC128(FPV_R), "%128", "%129", "%130", "")
+
+struct Params {
+  const int* cell_ids;    // (U + 1,)
+  const float* norms;     // (nlist, cmax)
+  const float* okf;       // (nlist, cmax)
+  const float* sscale;    // (U, qcap), int8 only
+  const float* sconst;    // (U, qcap), int8 only
+  const float* qstat;     // (U, qcap)
+  float* out;             // (U, qcap, cmax)
+  int qcap, cmax, metric;
+  int ksteps;             // 128-byte steps that cover a row
+  int ctiles, passes;     // cmax tiles of a cell, slot passes of a tile
+  int tma_out;            // the scores leave by TMA
+};
+
+// the plain version's roundings, step by step: no contraction
+template <bool INT8, typename Acc>
+__device__ __forceinline__ float score(int metric, Acc acc, float qs, float sc,
+                                       float so, float nv, float rinv,
+                                       float ok) {
+  if (!(ok > 0.5f)) return MASKED;
+  const float cross =
+      INT8 ? __fadd_rn(__fmul_rn(float(acc), sc), so) : float(acc);
+  if (metric == COSINE)
+    return __fsub_rn(1.0f, __fmul_rn(__fmul_rn(cross, qs), rinv));
+  if (metric == L2)
+    return fmaxf(__fsub_rn(__fadd_rn(qs, nv), __fmul_rn(2.0f, cross)), 0.0f);
+  return -cross;
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+stream_kernel(const __grid_constant__ CUtensorMap cmap,
+              const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap omap, const Params p) {
+  using L = Layout<NT>;
+  using Acc = typename first_slice::Op<T>::Acc;
+  constexpr bool INT8 = sizeof(T) == 1;
+  constexpr int STAGES = L::STAGES;
+  constexpr int KE = ROW_BYTES / int(sizeof(T));   // elements a K step
+  constexpr int SB = NT < 64 ? NT : 64;            // slots a staging box
+  constexpr int OUT_BOX = SB * 32 * 4;             // one SB x 32 f32 store box
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem + L::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);               // the producer's arrive + its bytes
+      mbar_init(&empty[s], CONSUMERS / 32); // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int per_cell = p.ctiles * p.passes;
+  const int ntiles = __ldg(p.cell_ids) * per_cell;   // unique cells only
+
+  if (tid >= CONSUMERS) {
+    // ---- producer: one thread keeps the ring's TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid != CONSUMERS) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int u = tile / per_cell;
+      const int cell = __ldg(p.cell_ids + 1 + u);
+      const int c0 = (tile / p.passes) % p.ctiles * BC;
+      const int s0 = tile % p.passes * NT;
+      for (int k = 0; k < p.ksteps; ++k) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* st = ring + stage * L::STAGE;
+        mbar_arrive_tx(&full[stage], L::STAGE);
+        tma_load_3d(st, &cmap, &full[stage], k * KE, c0, cell);
+        tma_load_3d(st + CELL_BYTES, &qmap, &full[stage], k * KE, s0, u);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 cell rows of every tile each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int g = tid / 128;
+  const int t = tid % 128;
+  const int w = t / 32;
+  const int lane = tid % 32;
+  uint8_t* out_base = smem + g * L::BUFS * STAGING;
+  int round = 0;
+  float* tab = reinterpret_cast<float*>(smem + L::TAB + g * TABLES);
+  Acc d[NT / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int u = tile / per_cell;
+    const int cell = __ldg(p.cell_ids + 1 + u);
+    const int n0 = (tile / p.passes) % p.ctiles * BC + 64 * g;  // group's rows
+    const int s0 = tile % p.passes * NT;
+    // this thread's accumulator rows: n0 + 16w + lane/4 and + 8
+    float nv[2], rinv[2], ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + 16 * w + lane / 4 + 8 * h;
+      const size_t at = (size_t)cell * p.cmax + min(c, p.cmax - 1);
+      nv[h] = __ldg(p.norms + at);
+      ok[h] = c < p.cmax ? __ldg(p.okf + at) : 0.0f;
+      rinv[h] = rsqrtf(fmaxf(nv[h], 1e-30f));
+    }
+    // the pass's per-slot tables; the previous tile's readers are done
+    named_sync(1 + g, 128);
+    for (int i = t; i < NT; i += 128) {
+      const size_t at = (size_t)u * p.qcap + min(s0 + i, p.qcap - 1);
+      tab[i] = __ldg(p.qstat + at);
+      if (INT8) {
+        tab[256 + i] = __ldg(p.sscale + at);
+        tab[512 + i] = __ldg(p.sconst + at);
+      }
+    }
+
+    int prev = 0;
+    for (int k = 0; k < p.ksteps; ++k) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* st = ring + stage * L::STAGE;
+      const uint64_t da = sw128_desc(st + g * 64 * ROW_BYTES);
+      const uint64_t db = sw128_desc(st + CELL_BYTES);
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#ifndef FPV_GROUPED_NO_MMA   // (tools/kernel_variants.py measures without)
+        Mma<T, NT>::run(d, da + 2 * kk, db + 2 * kk, (k > 0 || kk > 0) ? 1 : 0);
+#endif
+      }
+      wgmma_commit();
+      if (k > 0) {
+        // the previous step's products have completed: release its stage
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(d);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+    named_sync(1 + g, 128);   // the tables are written
+
+    // accumulator layout of m64nNT: register 4i + e of warp w, lane l is
+    // cell row 16w + l/4 (+8 for e >= 2) and slot 8i + 2(l%4) + (e & 1)
+    const int cq = 2 * (lane % 4);
+    if (p.tma_out) {
+      // SB slots x 64 rows at a time through the staging tile: two swizzled
+      // SB x 32 boxes, stored by the warpgroup's first thread
+#pragma unroll
+      for (int qc = 0; qc < NT / SB; ++qc) {
+        // the store that last read this staging tile has done so
+        uint8_t* out_s = out_base + (round++ % L::BUFS) * STAGING;
+        if (t == 0) bulk_wait_read<L::BUFS - 1>();
+        named_sync(1 + g, 128);
+#pragma unroll
+        for (int ii = 0; ii < SB / 8; ++ii) {
+          const int i = (SB / 8) * qc + ii;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qr = 8 * ii + cq + (e & 1);          // slot in the box
+            const int sl = SB * qc + qr;                   // slot in the pass
+            const int col = 16 * w + lane / 4 + 8 * (e >> 1);
+            const int h = e >> 1;
+            const float s = score<INT8>(
+                p.metric, d[4 * i + e], tab[sl], INT8 ? tab[256 + sl] : 0.0f,
+                INT8 ? tab[512 + sl] : 0.0f, nv[h], rinv[h], ok[h]);
+            *reinterpret_cast<float*>(out_s + (col / 32) * OUT_BOX +
+                                      sw128_chunk(qr, (col % 32) / 4) +
+                                      4 * (col % 4)) = s;
+          }
+        }
+        fence_proxy_async();
+        named_sync(1 + g, 128);
+#ifndef FPV_GROUPED_NO_STORE
+        if (t == 0 && n0 < p.cmax && s0 + SB * qc < p.qcap) {
+          tma_store_3d(&omap, out_s, n0, s0 + SB * qc, u);
+          if (n0 + 32 < p.cmax)
+            tma_store_3d(&omap, out_s + OUT_BOX, n0 + 32, s0 + SB * qc, u);
+          bulk_commit();
+        }
+#endif
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NT / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int sl = 8 * i + cq + (e & 1);
+          const int h = e >> 1;
+          const int c = n0 + 16 * w + lane / 4 + 8 * h;
+          if (s0 + sl < p.qcap && c < p.cmax)
+            p.out[((size_t)u * p.qcap + s0 + sl) * p.cmax + c] = score<INT8>(
+                p.metric, d[4 * i + e], tab[sl], INT8 ? tab[256 + sl] : 0.0f,
+                INT8 ? tab[512 + sl] : 0.0f, nv[h], rinv[h], ok[h]);
+        }
+      }
+    }
+  }
+  if (t == 0) bulk_wait_all();
+}
+
+template <typename T, int NT>
+int run(const CUtensorMap& cmap, const CUtensorMap& qmap,
+        const CUtensorMap& omap, const Params& p, long long tiles,
+        cudaStream_t s) {
+  const int bytes = 1024 + Layout<NT>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      stream_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return int(e);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = int(tiles < sms ? tiles : sms);   // persistent blocks
+  stream_kernel<T, NT><<<grid, THREADS, bytes, s>>>(cmap, qmap, omap, p);
+  return int(cudaGetLastError());
+}
+
+// slots a pass (wgmma's N): the narrowest shape that holds qcap, 256 above
+inline int pass_slots(int qcap) {
+  return qcap <= 16 ? 16 : qcap <= 32 ? 32 : qcap <= 64 ? 64
+         : qcap <= 128 ? 128 : 256;
+}
+
+template <typename T>
+int launch(const int* ids, const T* q, const T* c, const float* norms,
+           const float* okf, const float* sscale, const float* sconst,
+           const float* qstat, float* out, int U, int qcap, int cmax, int D,
+           int metric, void* stream) {
+  constexpr int ES = int(sizeof(T));
+  constexpr CUtensorMapDataType TYPE =
+      ES == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int nt = pass_slots(qcap);
+  const int sb = nt < 64 ? nt : 64;
+  Params p;
+  p.cell_ids = ids;
+  p.norms = norms;
+  p.okf = okf;
+  p.sscale = sscale;
+  p.sconst = sconst;
+  p.qstat = qstat;
+  p.out = out;
+  p.qcap = qcap;
+  p.cmax = cmax;
+  p.metric = metric;
+  p.ksteps = (D * ES + ROW_BYTES - 1) / ROW_BYTES;
+  p.ctiles = (cmax + BC - 1) / BC;
+  p.passes = (qcap + nt - 1) / nt;
+  // the scores go out by TMA where their rows are whole 16-byte units
+  p.tma_out = (cmax % 4) == 0 && (reinterpret_cast<uintptr_t>(out) % 16) == 0;
+  const long long tiles = (long long)U * p.ctiles * p.passes;
+  if (tiles > 0x7FFFFFFFLL) return int(cudaErrorInvalidConfiguration);
+  CUtensorMap cmap, qmap, omap;
+  if (!encode_3d(&cmap, TYPE, ES, c, kAnyCells, cmax, D, BC, ROW_BYTES / ES) ||
+      !encode_3d(&qmap, TYPE, ES, q, U, qcap, D, nt, ROW_BYTES / ES))
+    return int(cudaErrorInvalidValue);
+  if (p.tma_out && !encode_3d(&omap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out,
+                              U, qcap, cmax, sb, 32))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nt) {
+    case 16: return run<T, 16>(cmap, qmap, omap, p, tiles, s);
+    case 32: return run<T, 32>(cmap, qmap, omap, p, tiles, s);
+    case 64: return run<T, 64>(cmap, qmap, omap, p, tiles, s);
+    case 128: return run<T, 128>(cmap, qmap, omap, p, tiles, s);
+    default: return run<T, 256>(cmap, qmap, omap, p, tiles, s);
+  }
+}
+
+}  // namespace cell_stream
+
+// Shapes the cell stream takes: TMA needs a row pitch of whole 16-byte
+// units and 16-byte aligned bases.  Everything else goes to first_slice.
+inline bool stream_ok(const void* q, const void* c, int D, int elem_bytes) {
+  return (D * elem_bytes) % 16 == 0 &&
+         (reinterpret_cast<uintptr_t>(q) % 16) == 0 &&
+         (reinterpret_cast<uintptr_t>(c) % 16) == 0;
+}
+
+template <typename T>
+int launch(const int* ids, const T* q, const T* c, const float* norms,
+           const float* okf, const float* sscale, const float* sconst,
+           const float* qstat, float* out, int U, int qcap, int cmax, int D,
+           int metric, void* stream) {
+  if (U <= 0 || qcap <= 0 || cmax <= 0 || D <= 0)
+    return int(cudaGetLastError());
+  if (stream_ok(q, c, D, int(sizeof(T))))
+    return cell_stream::launch<T>(ids, q, c, norms, okf, sscale, sconst,
+                                  qstat, out, U, qcap, cmax, D, metric,
+                                  stream);
+  return first_slice::launch<T>(ids, q, c, norms, okf, sscale, sconst, qstat,
+                                out, U, qcap, cmax, D, metric, stream);
+}
+
 }  // namespace
 
 extern "C" {
+
+// 1 where operands of this row width, element size and alignment go to the
+// TMA / wgmma cell stream, 0 where they go to the first-slice kernel.
+int fpv_grouped_design(const void* qblk, const void* cells, int D,
+                       int elem_bytes) {
+  return stream_ok(qblk, cells, D, elem_bytes) ? 1 : 0;
+}
 
 // cell_ids (U+1,) i32 [n_uniq, compact -> cell ids...]; qblk (U, qcap, D)
 // bf16; cells (nlist, cmax, D) bf16; norms, okf (nlist, cmax) f32; qstat

@@ -6,7 +6,13 @@ Each entry has two versions:
 
   * the hand-written Hopper kernel in ``csrc/grouped_cell_scores.cu`` (B2,
     B3) or ``csrc/grouped_cell_scores_pq.cu`` (B7), built with ``nvcc`` at
-    first use and bound with ``ctypes``;
+    first use and bound with ``ctypes``.  B2 / B3 have two kernels in that
+    source and the launcher picks by the operands alone: the TMA / wgmma
+    cell stream where the row pitch ``D * itemsize`` and both bases are
+    multiples of 16 bytes (what TMA can address), the first-slice wmma
+    kernel for every other shape; never on a failure
+    (``grouped_design`` reports which).  B7 builds its work list in an
+    int32 scratch tensor the wrapper allocates;
   * a plain PyTorch version of the same math (``*_plain``): gather the
     compact cells, one batched product, the metric epilogue (B2, B3); a
     table lookup per subspace, summed in order (B7).
@@ -38,10 +44,14 @@ LAUNCHES = {"grouped_cell_scores": 0, "grouped_cell_scores_i8": 0,
 SOURCE = CudaSource("grouped_cell_scores", {
     "fpv_grouped_cell_scores": [P] * 7 + [I] * 5 + [P],
     "fpv_grouped_cell_scores_i8": [P] * 9 + [I] * 5 + [P],
+    "fpv_grouped_design": [P, P, I, I],
 })
 SOURCE_PQ = CudaSource("grouped_cell_scores_pq", {
-    "fpv_grouped_cell_scores_pq": [P] * 5 + [I] * 5 + [P],
+    "fpv_grouped_cell_scores_pq": [P] * 5 + [I] * 5 + [P, P],
+    "fpv_grouped_cell_scores_pq_scratch": [I, I, I],
 })
+# the one design of B7 in csrc/grouped_cell_scores_pq.cu
+PQ_DESIGN = "lane_per_slot_ring"
 # bytes of gathered f32 tables per chunk of compact cells (plain B7)
 _PQ_PLAIN_BYTES = 256 << 20
 
@@ -133,6 +143,16 @@ def _launch(entry, counter, cell_ids, qblk, cells, norms, okf, extra, qstat,
     return out
 
 
+def grouped_design(qblk: torch.Tensor, cells: torch.Tensor) -> str:
+    """Which B2 / B3 kernel these CUDA operands go to: ``"tma_wgmma"`` (the
+    cell stream) or ``"first_slice"`` (row pitch or a base not a multiple of
+    16 bytes).  The launcher's own test, asked of the built library."""
+    new = SOURCE.load().fpv_grouped_design(
+        qblk.data_ptr(), cells.data_ptr(), qblk.shape[-1],
+        qblk.element_size())
+    return "tma_wgmma" if new else "first_slice"
+
+
 def grouped_cell_scores(cell_ids: torch.Tensor, qblk: torch.Tensor,
                         cells: torch.Tensor, norms: torch.Tensor,
                         okf: torch.Tensor, qstat: torch.Tensor, *,
@@ -201,7 +221,10 @@ def grouped_cell_scores_pq(cell_ids: torch.Tensor, lut: torch.Tensor,
     """(U+1,) i32 compact cell list, (B, M*K) bf16 per-query ADC tables,
     (U, qcap) slot table (query id, -1 = empty), (nlist, M, cmax) uint8
     transposed cell codes -> (U, qcap, cmax) f32 ADC sums.  Rows past
-    ``cell_ids[0]`` and empty slots are unspecified.  Any shape, K <= 256."""
+    ``cell_ids[0]`` and empty slots are unspecified.  Any shape, K <= 256.
+    The CUDA kernel sizes its slot tiles to each row's load and is fastest
+    where a row's live slots are a prefix, as ``invert_pairs`` fills them;
+    a hole is skipped all the same."""
     if codes_t.device.type == "cpu":
         return grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t)
     u, qcap = qslot.shape
@@ -220,12 +243,18 @@ def grouped_cell_scores_pq(cell_ids: torch.Tensor, lut: torch.Tensor,
     out = torch.empty((u, qcap, cmax), dtype=torch.float32,
                       device=codes_t.device)
     lib = SOURCE_PQ.load()
+    # the kernel's work list (its counters and tiles) lives in scratch
+    ints = lib.fpv_grouped_cell_scores_pq_scratch(u, qcap, cmax)
+    if ints < 0:
+        raise ValueError("grouped_cell_scores_pq: too many tiles for "
+                         f"U={u} qcap={qcap} cmax={cmax}")
+    scratch = torch.empty(ints, dtype=torch.int32, device=codes_t.device)
     with torch.cuda.device(codes_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fpv_grouped_cell_scores_pq(
             cell_ids.data_ptr(), lut.data_ptr(), qslot.data_ptr(),
             codes_t.data_ptr(), out.data_ptr(), u, qcap, cmax, m, mk // m,
-            stream)
+            scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"grouped_cell_scores_pq launch failed: CUDA "
                            f"error {rc}")

@@ -48,9 +48,9 @@ def _qstat(metric, q):
     return np.zeros(q.shape[:2], np.float32)
 
 
-def _kernel_inputs(seed, int8):
+def _kernel_inputs(seed, int8, shape=(6, 4, 8, 128, 128)):
     rng = np.random.default_rng(seed)
-    nlist, u, qcap, cmax, d = 6, 4, 8, 128, 128
+    nlist, u, qcap, cmax, d = shape
     if int8:
         qblk = rng.integers(-127, 128, (u, qcap, d)).astype(np.int8)
         cells = rng.integers(-127, 128, (nlist, cmax, d)).astype(np.int8)
@@ -68,14 +68,35 @@ def _kernel_inputs(seed, int8):
 # a strict subset of the 6 cells, then the same with a padding tail
 # (n_uniq < U: the last compact slot aliases cell 0 and is skipped)
 CELL_LISTS = [[4, 0, 2, 3, 5], [3, 1, 4, 5, 0]]
+# the shapes that decide the CUDA kernels' dispatch and tiling, as
+# (nlist, U, n_uniq, qcap, cmax, D): a row pitch of whole 16-byte units and
+# not (D 41, and 72 for int8), qcap 8 / 64 / 256 and two non-powers of two
+# above 256, cmax off the 128-row tile and the 4-float store unit
+KERNEL_CASES = CELL_LISTS + [
+    pytest.param(shape, id="x".join(map(str, shape)))
+    for shape in [(7, 5, 3, 8, 200, 41), (6, 4, 3, 8, 200, 64),
+                  (5, 4, 3, 64, 136, 768), (5, 4, 2, 256, 640, 128),
+                  (4, 3, 2, 408, 260, 72), (4, 3, 3, 300, 130, 96)]]
 
 
-@pytest.mark.parametrize("cell_list", CELL_LISTS)
+def _case(seed, int8, case):
+    """(cell ids, inputs) of a ``KERNEL_CASES`` entry: a cell list over the
+    default shape, or a ragged shape with a padding tail."""
+    if isinstance(case, list):
+        return np.array(case, np.int32), _kernel_inputs(seed, int8)
+    nlist, u, n_uniq, qcap, cmax, d = case
+    rng = np.random.default_rng(seed + 1)
+    ids = rng.permutation(nlist)[:u]
+    ids[n_uniq:] = 0
+    return (np.concatenate([[n_uniq], ids]).astype(np.int32),
+            _kernel_inputs(seed, int8, (nlist, u, qcap, cmax, d)))
+
+
+@pytest.mark.parametrize("cell_list", KERNEL_CASES)
 @pytest.mark.parametrize("metric", METRICS)
 def test_grouped_cell_scores_plain_matches_pallas(metric, cell_list):
-    qblk, cells, norms, ok, _, _ = _kernel_inputs(9, int8=False)
+    ids, (qblk, cells, norms, ok, _, _) = _case(9, False, cell_list)
     qstat = _qstat(metric, qblk)
-    ids = np.array(cell_list, np.int32)
     want = np.asarray(j_b2(
         jnp.asarray(ids), jnp.asarray(qblk, jnp.bfloat16),
         jnp.asarray(cells, jnp.bfloat16), jnp.asarray(norms),
@@ -86,7 +107,8 @@ def test_grouped_cell_scores_plain_matches_pallas(metric, cell_list):
         torch.as_tensor(cells).bfloat16(), torch.as_tensor(norms),
         torch.as_tensor(ok), torch.as_tensor(qstat), metric=metric).numpy()
     n = ids[0]
-    assert got.shape == want.shape == (4, 8, 128)
+    assert got.shape == want.shape == (qblk.shape[0], qblk.shape[1],
+                                       cells.shape[1])
     got, want = got[:n], want[:n]
     live = want < MASKED / 2
     np.testing.assert_array_equal(got >= MASKED / 2, ~live)
@@ -95,12 +117,11 @@ def test_grouped_cell_scores_plain_matches_pallas(metric, cell_list):
     np.testing.assert_allclose(got[live], want[live], rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("cell_list", CELL_LISTS)
+@pytest.mark.parametrize("cell_list", KERNEL_CASES)
 @pytest.mark.parametrize("metric", METRICS)
 def test_grouped_cell_scores_i8_plain_matches_pallas(metric, cell_list):
-    qblk, cells, norms, ok, sscale, sconst = _kernel_inputs(11, int8=True)
+    ids, (qblk, cells, norms, ok, sscale, sconst) = _case(11, True, cell_list)
     qstat = _qstat(metric, qblk.astype(np.float32))
-    ids = np.array(cell_list, np.int32)
     want = np.asarray(j_b3(
         jnp.asarray(ids), jnp.asarray(qblk), jnp.asarray(cells),
         jnp.asarray(norms), jnp.asarray(ok), jnp.asarray(sscale),
@@ -150,6 +171,10 @@ def test_non_cpu_tensor_never_falls_back(int8):
     (24, 3, 10, 16),   # nothing shed
     (40, 4, 6, 8),     # saturated: popular cells shed their high ranks
     (7, 2, 50, 8),     # U = min(nlist, M) = M: most cells unprobed
+    (64, 8, 16, 32),   # every cell probed, the hot ones past one 32-slot tile
+    (33, 5, 12, 8),    # saturated, an odd batch
+    (128, 2, 4, 16),   # four cells, all saturated
+    (16, 4, 64, 8),    # U = M = 64 compact rows, most of them an empty tail
 ])
 def test_invert_pairs_identical(b, nprobe, nlist, qcap):
     rng = np.random.default_rng(b * 100 + nlist)
@@ -172,6 +197,18 @@ def test_invert_pairs_identical(b, nprobe, nlist, qcap):
                                   np.asarray(jp["qslot_c"])[:n_uniq])
     if qcap == 8 and b == 40:
         assert int(jp["dropped"]) > 0
+    # what the CUDA kernels rely on: the live slots of every compact row are
+    # a prefix, min(the cell's pairs, qcap) long, and the rows past n_uniq
+    # are empty
+    live = tp["qslot_c"].numpy() >= 0
+    load = live.sum(axis=1)
+    np.testing.assert_array_equal(live, np.arange(qcap)[None, :]
+                                  < load[:, None])
+    cells = tp["cell_list"].numpy()[1:1 + n_uniq]
+    np.testing.assert_array_equal(
+        load[:n_uniq], np.minimum(np.bincount(probe.reshape(-1),
+                                              minlength=nlist)[cells], qcap))
+    assert not live[n_uniq:].any()
 
 
 def test_invert_pairs_never_syncs_with_the_host():
@@ -478,10 +515,19 @@ def _ragged_case(seed, nlist, u, n_uniq, qcap, cmax, d, int8):
     return cell_ids, qblk, cells, norms, okf, sscale, sconst, qstat
 
 
+# (nlist, U, n_uniq, qcap, cmax, D): both sides of the dispatch (a row pitch
+# of whole 16-byte units goes to the TMA / wgmma cell stream, D 41 / 130 and
+# int8 D 72 to the first-slice kernel), qcap 8 / 64 / 256 and two
+# non-powers of two above 256 (a second pass of slots), cmax off the 128-row
+# tile and off the 4-float store unit, n_uniq < U
+CUDA_SHAPES = [(7, 5, 3, 8, 200, 41), (9, 6, 6, 16, 128, 130),
+               (5, 4, 2, 40, 130, 64), (6, 4, 3, 8, 200, 64),
+               (5, 4, 3, 64, 136, 768), (5, 4, 2, 256, 640, 128),
+               (4, 3, 2, 408, 260, 72), (4, 3, 3, 300, 130, 96)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(7, 5, 3, 8, 200, 41),
-                                   (9, 6, 6, 16, 128, 130),
-                                   (5, 4, 2, 40, 130, 64)])
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
 @pytest.mark.parametrize("metric", METRICS)
 def test_cuda_grouped_kernels_match_plain(metric, shape):
     if not torch.cuda.is_available():
@@ -493,6 +539,9 @@ def test_cuda_grouped_kernels_match_plain(metric, shape):
                                            d, int8))
         name = "grouped_cell_scores_i8" if int8 else "grouped_cell_scores"
         n0 = ik.LAUNCHES[name]
+        aligned = (d * qblk.element_size()) % 16 == 0
+        assert ik.grouped_design(qblk, cells) == (
+            "tma_wgmma" if aligned else "first_slice")
         if int8:
             got = ik.grouped_cell_scores_i8(c_ids, qblk, cells, norms, okf,
                                             ss, sc, qs, metric=metric)

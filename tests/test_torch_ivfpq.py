@@ -13,6 +13,7 @@ port's own build is held to the JAX tests' recall bounds.  The
 ``cuda``-marked tests at the end hold the CUDA kernel against its plain
 version on a card."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,9 +40,11 @@ B7_RTOL = 1e-5
 # (a) B7: the plain version against the Pallas kernel in interpret mode
 # ---------------------------------------------------------------------------
 
-def _b7_case(seed, nlist, u, n_uniq, qcap, cmax, m, kk, b):
+def _b7_case(seed, nlist, u, n_uniq, qcap, cmax, m, kk, b, loads=None):
     """The port's operands (per-query tables + slot table) and the JAX
-    kernel's (the slot-gathered tables)."""
+    kernel's (the slot-gathered tables).  ``loads``: live slots per compact
+    row (a prefix, as ``invert_pairs`` fills them), random in 1..qcap if
+    None."""
     rng = np.random.default_rng(seed)
     cells = rng.permutation(nlist)[:u].astype(np.int32)
     cells[n_uniq:] = 0                      # the padding tail aliases cell 0
@@ -49,10 +52,31 @@ def _b7_case(seed, nlist, u, n_uniq, qcap, cmax, m, kk, b):
     lut = torch.as_tensor(rng.standard_normal((b, m * kk)).astype(
         np.float32)).bfloat16()
     load = rng.integers(1, qcap + 1, (u, 1))
+    if loads is not None:
+        load = np.resize(np.asarray(loads), u)[:, None]
     qslot = np.where(np.arange(qcap)[None, :] < load,
                      rng.integers(0, b, (u, qcap)), -1).astype(np.int32)
     codes_t = rng.integers(0, kk, (nlist, m, cmax)).astype(np.uint8)
     return cell_ids, lut, qslot, codes_t
+
+
+def _j_b7(cell_ids, lutq, codes_t):
+    """The JAX package's B7: the Pallas kernel in interpret mode at the
+    shapes it takes (cmax and M*K multiples of 128, qcap of 8), else its
+    XLA reference, the one-hot bf16 product of ``ann/ivfpq.py``'s
+    fallback."""
+    u, qcap, mk = lutq.shape
+    _, m, cmax = codes_t.shape
+    if cmax % 128 == 0 and mk % 128 == 0 and qcap % 8 == 0:
+        return j_b7(cell_ids, lutq, codes_t, interpret=True)
+    kk = mk // m
+    cod = jnp.take(codes_t, cell_ids[1:], axis=0).astype(jnp.int32)
+    oh = (cod[:, :, None, :] == jnp.arange(kk, dtype=jnp.int32)[
+        None, None, :, None]).astype(jnp.bfloat16)       # (U, M, K, cmax)
+    return jax.lax.dot_general(
+        lutq, oh.reshape(u, mk, cmax),
+        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+        preferred_element_type=jnp.float32)
 
 
 @pytest.mark.parametrize("shape", [
@@ -60,20 +84,28 @@ def _b7_case(seed, nlist, u, n_uniq, qcap, cmax, m, kk, b):
     (6, 4, 3, 8, 128, 32, 16, 20),
     (6, 4, 3, 8, 256, 8, 16, 5),
     (5, 5, 5, 16, 128, 8, 64, 30),
+    # the shapes that decide the CUDA kernel's tiling: loads 0 / 1 / a full
+    # 32-slot tile / one past it / saturated; M off the staged chunk; K 16 /
+    # 64 / 256 and an odd K; cmax 72 / 768 / 1100
+    (8, 6, 5, 72, 768, 7, 256, 50, (0, 1, 32, 33, 72, 17)),
+    (8, 6, 6, 40, 72, 40, 16, 20, (0, 1, 32, 33, 40, 9)),
+    (8, 6, 5, 344, 1100, 12, 64, 64, (344, 0, 1, 33, 20, 100)),
+    (5, 4, 3, 16, 100, 5, 13, 7),
 ])
 def test_grouped_cell_scores_pq_plain_matches_pallas(shape):
     cell_ids, lut, qslot, codes_t = _b7_case(13, *shape)
     n_uniq = shape[2]
     lutq = np.array(lut.float())[np.maximum(qslot, 0)]       # (U, qcap, MK)
-    want = np.asarray(j_b7(jnp.asarray(cell_ids),
-                           jnp.asarray(lutq, jnp.bfloat16),
-                           jnp.asarray(codes_t), interpret=True))
+    want = np.asarray(_j_b7(jnp.asarray(cell_ids),
+                            jnp.asarray(lutq, jnp.bfloat16),
+                            jnp.asarray(codes_t)))
     got = ik.grouped_cell_scores_pq(
         torch.as_tensor(cell_ids), lut, torch.as_tensor(qslot),
         torch.as_tensor(codes_t)).numpy()
     assert got.shape == want.shape
     live = np.broadcast_to((qslot >= 0)[:, :, None], got.shape)[:n_uniq]
     g, w = got[:n_uniq][live], want[:n_uniq][live]
+    assert g.size > 0
     np.testing.assert_allclose(g, w, rtol=0,
                                atol=B7_RTOL * max(np.abs(w).max(), 1.0))
 
@@ -389,7 +421,14 @@ def test_explicit_knobs_turn_auto_tune_off(monkeypatch):
 @pytest.mark.parametrize("shape", [
     # nlist, u, n_uniq, qcap, cmax, m, kk, b
     (7, 5, 3, 8, 72, 1, 16, 20), (9, 6, 4, 40, 768, 8, 256, 50),
-    (6, 4, 3, 8, 200, 96, 256, 30), (4, 3, 3, 16, 1100, 12, 64, 9)])
+    (6, 4, 3, 8, 200, 96, 256, 30), (4, 3, 3, 16, 1100, 12, 64, 9),
+    (5, 4, 3, 16, 100, 5, 13, 7),            # an odd K: no 4-byte copies
+    # loads 0 / 1 / a full 32-slot tile / one past it / saturated, every
+    # tail width; M off the staged chunk (2 / 32 / 8 subspaces for K 256 /
+    # 16 / 64); cmax 768 / 72 / 1100 (two cmax tiles)
+    (8, 6, 5, 72, 768, 7, 256, 50, (0, 1, 32, 33, 72, 17)),
+    (8, 6, 6, 40, 72, 40, 16, 20, (0, 1, 32, 33, 40, 9)),
+    (8, 6, 5, 344, 1100, 12, 64, 64, (344, 0, 1, 33, 20, 100))])
 def test_cuda_grouped_cell_scores_pq_matches_plain(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -403,6 +442,7 @@ def test_cuda_grouped_cell_scores_pq_matches_plain(shape):
     n = shape[2]
     live = (qslot[:n] >= 0)[:, :, None].expand(-1, -1, codes_t.shape[2])
     g, w = got[:n][live], want[:n][live]
+    assert g.numel() > 0 and torch.isfinite(g).all()
     assert (g - w).abs().max().item() <= B7_RTOL * max(
         w.abs().max().item(), 1.0)
 

@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Time the scan kernels of ``fastpyvectordb_tpu_torch/csrc`` against an
+"""Time the hand kernels of ``fastpyvectordb_tpu_torch/csrc`` against an
 earlier version of the same sources, in turns on one CUDA card.
 
     git show <rev>:fastpyvectordb_tpu_torch/csrc/quant_scores.cu > build/old/quant_scores.cu
     git show <rev>:fastpyvectordb_tpu_torch/csrc/hamming_scores.cu > build/old/hamming_scores.cu
+    git show <rev>:fastpyvectordb_tpu_torch/csrc/grouped_cell_scores.cu > build/old/grouped_cell_scores.cu
+    git show <rev>:fastpyvectordb_tpu_torch/csrc/grouped_cell_scores_pq.cu > build/old/grouped_cell_scores_pq.cu
     python3 tools/kernel_ab.py build/old
 
-The earlier sources are those whose C entry points take the f32 queries
+Only the kernels whose earlier source lies in the directory are timed.  The
+earlier scan sources are those whose C entry points take the f32 queries
 (``fpv_sq_scores`` / ``fpv_int4_scores``: q, codes, vmin, rscale, qsq, out,
 B, N, width, metric, stream) and the packed query words
-(``fpv_hamming_*``: q, codes, out, B, N, W, stream).  Each is built with the
-port's own nvcc flags.  Shapes: int4_scores and hamming_mxu_scores at the
-two-stage paths' B=1024 x 1M rows x 768 dims, sq_scores and hamming_scores
-at a B=1024 x 65,536-row block; cosine; random rows made on the card from a
-fixed seed.  Each pair is timed old, new, new, old (CUDA events, mean of
-``REPS`` launches after a warm-up) and checked to agree.  Prints one line a
-kernel and, last, the card's nvidia-smi name and power limit.
+(``fpv_hamming_*``: q, codes, out, B, N, W, stream); the earlier grouped
+sources are the first-slice kernels (``fpv_grouped_cell_scores[_i8]`` as
+now; ``fpv_grouped_cell_scores_pq`` without the scratch argument).  Each is
+built with the port's own nvcc flags.  Shapes: int4_scores and
+hamming_mxu_scores at the two-stage paths' B=1024 x 1M rows x 768 dims,
+sq_scores and hamming_scores at a B=1024 x 65,536-row block, on random rows
+made on the card from a fixed seed; grouped_cell_scores (bf16 cells, nprobe
+32), grouped_cell_scores_i8 (int8 cells, nprobe 16) and
+grouped_cell_scores_pq (nprobe 64) at the operands ``chip_smoke.py``'s IVF
+and IVF-PQ paths make for one B=1024 batch on its 1M x 768 corpus
+(``main_path_operands``); cosine.  Each pair is timed old, new, new, old
+(CUDA events, mean of ``REPS`` launches after a warm-up) and checked to
+agree; grouped_cell_scores also beside its library call, ``torch.bmm`` of
+cells gathered beforehand.  Prints one line a kernel and, last, the card's
+nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -53,10 +64,12 @@ def ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def in_turns(name, old, new, tol):
+def in_turns(name, old, new, tol, mask=None):
     import torch
     a, b = old(), new()
     torch.cuda.synchronize()
+    if mask is not None:   # what both versions leave unwritten is not compared
+        a, b = a[mask.expand_as(a)], b[mask.expand_as(b)]
     gap = (a.double() - b.double()).abs().max().item()
     if gap > tol * max(b.double().abs().max().item(), 1.0):
         raise AssertionError(f"{name}: old and new differ by {gap}")
@@ -66,7 +79,138 @@ def in_turns(name, old, new, tol):
           f"max gap {gap:.3g}", flush=True)
 
 
-def main(old_dir: str) -> None:
+# the nprobe each of chip_smoke.py's IVF modes tunes to on its corpus
+MAIN_PATH_NPROBE = {"b2": 32, "b3": 16, "b7": 64}
+
+
+def main_path_operands(which=("b2", "b3", "b7")) -> dict:
+    """The arguments ``chip_smoke.py``'s IVF (bf16 cells: "b2", int8 cells:
+    "b3") and IVF-PQ ("b7") paths hand their kernel for one B=1024 batch:
+    its corpus and queries, its build recipes, the nprobe each mode tunes
+    to there."""
+    import tempfile
+    import torch
+    import chip_smoke as cs
+    from fastpyvectordb_tpu_torch import VectorDB
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    centers = 2.0 * torch.randn((cs.N_CENTERS, cs.DIMS), generator=gen,
+                                device="cuda")
+    corpus = cs.clustered(gen, cs.N_ROWS, centers, 1.0)
+    corpus /= torch.linalg.norm(corpus, dim=1, keepdim=True)
+    queries = cs.clustered(gen, cs.BATCH, centers, 0.5).cpu().numpy()
+    host = corpus.cpu().numpy()
+    del corpus
+    ids = [f"v{i}" for i in range(cs.N_ROWS)]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        db = VectorDB(tmp, device="cuda")
+        if "b2" in which:
+            bf = db.create_collection("bf16", dimensions=cs.DIMS,
+                                      metric="cosine",
+                                      compute_dtype="bfloat16",
+                                      storage_dtype="bfloat16")
+            bf.insert_batch(host, ids)
+            bf.build_ann("ivf", tune=False, **cs.IVF_BUILD)
+            out["b2"] = cs.ivf_kernel_case(bf._ann, queries, "cosine",
+                                           MAIN_PATH_NPROBE["b2"])
+            db.delete_collection("bf16")
+        if "b3" in which or "b7" in which:
+            col = db.create_collection("main", dimensions=cs.DIMS,
+                                       metric="cosine")
+            col.insert_batch(host, ids)
+        if "b3" in which:
+            col.build_ann("ivf", tune=False, cell_dtype="int8",
+                          **cs.IVF_BUILD)
+            out["b3"] = cs.ivf_kernel_case(col._ann, queries, "cosine",
+                                           MAIN_PATH_NPROBE["b3"])
+        if "b7" in which:
+            col.build_ann("ivfpq", tune=False)
+            out["b7"] = cs.ivfpq_kernel_case(col._ann, queries,
+                                             MAIN_PATH_NPROBE["b7"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def grouped_in_turns(old_dir: Path, out_dir: Path) -> None:
+    """B2, B3 and B7, old against new at the main path's operands."""
+    import torch
+    import chip_smoke as cs
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
+    have_ivf = (old_dir / "grouped_cell_scores.cu").exists()
+    have_pq = (old_dir / "grouped_cell_scores_pq.cu").exists()
+    if not (have_ivf or have_pq):
+        return
+    cuda_build.build_all(ik.SOURCE, ik.SOURCE_PQ)
+    ops = main_path_operands((("b2", "b3") if have_ivf else ())
+                             + (("b7",) if have_pq else ()))
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def shape_of(args):
+        u, qcap, d = args[1].shape
+        return (f"U={u} n_uniq={int(args[0][0])} qcap={qcap} "
+                f"cmax={args[2].shape[1]} D={d}")
+
+    if have_ivf:
+        old = build_old(old_dir / "grouped_cell_scores.cu", out_dir)
+        old.fpv_grouped_cell_scores.argtypes = [P] * 7 + [I] * 5 + [P]
+        old.fpv_grouped_cell_scores_i8.argtypes = [P] * 9 + [I] * 5 + [P]
+        for key, fn, new, tol in (
+                ("b2", "fpv_grouped_cell_scores", ik.grouped_cell_scores,
+                 cs.KERNEL_RTOL),
+                ("b3", "fpv_grouped_cell_scores_i8",
+                 ik.grouped_cell_scores_i8, cs.I8_RTOL)):
+            args = ops[key]
+            u, qcap, d = args[1].shape
+            cmax = args[2].shape[1]
+            n = int(args[0][0])
+
+            def run_old(fn=fn, args=args, dims=(u, qcap, cmax, d)):
+                out = torch.empty(dims[:3], device="cuda")
+                rc = getattr(old, fn)(*(t.data_ptr() for t in args),
+                                      out.data_ptr(), *dims, 0, stream())
+                assert rc == 0, rc
+                return out[:n]
+
+            design = ik.grouped_design(args[1], args[2])
+            in_turns(f"{fn[4:]} nprobe {MAIN_PATH_NPROBE[key]} "
+                     f"{shape_of(args)} (new design: {design})", run_old,
+                     lambda new=new, args=args: new(*args,
+                                                    metric="cosine")[:n],
+                     tol)
+            if key == "b2":
+                print(f"grouped_cell_scores library (torch.bmm of cells "
+                      f"gathered beforehand): "
+                      f"{ms(cs.ivf_library(args)):.4f} ms", flush=True)
+    if have_pq:
+        old = build_old(old_dir / "grouped_cell_scores_pq.cu", out_dir)
+        old.fpv_grouped_cell_scores_pq.argtypes = [P] * 5 + [I] * 5 + [P]
+        args = ops["b7"]
+        cell_ids, lut, qslot, codes_t = args
+        u, qcap = qslot.shape
+        _, m, cmax = codes_t.shape
+        n = int(cell_ids[0])
+        live = (qslot[:n] >= 0)[:, :, None]
+
+        def run_old():
+            out = torch.empty((u, qcap, cmax), device="cuda")
+            rc = old.fpv_grouped_cell_scores_pq(
+                *(t.data_ptr() for t in args), out.data_ptr(), u, qcap, cmax,
+                m, lut.shape[1] // m, stream())
+            assert rc == 0, rc
+            return out[:n]
+
+        # only live slots are written: compare those (the timed calls
+        # return the block itself)
+        in_turns(f"grouped_cell_scores_pq nprobe {MAIN_PATH_NPROBE['b7']} "
+                 f"U={u} n_uniq={n} qcap={qcap} cmax={cmax} M={m} "
+                 f"K={lut.shape[1] // m} filled={int(live.sum())}",
+                 run_old, lambda: ik.grouped_cell_scores_pq(*args)[:n],
+                 cs.PQ_RTOL, mask=live)
+
+
+def scans_in_turns(old_dir: Path, out_dir: Path) -> None:
+    """B4, B1, B5 and B6, old against new on random rows."""
     import torch
     from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
@@ -74,13 +218,12 @@ def main(old_dir: str) -> None:
     from fastpyvectordb_tpu_torch.quant.binary import BinaryQuantizer
     from fastpyvectordb_tpu_torch.quant.int4 import Int4Quantizer
     from fastpyvectordb_tpu_torch.quant.scalar import ScalarQuantizer
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab: needs a CUDA card")
-    out_dir = ROOT / "build" / "kernel_ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if not ((old_dir / "quant_scores.cu").exists()
+            and (old_dir / "hamming_scores.cu").exists()):
+        return
     cuda_build.build_all(qk.SOURCE, hk.SOURCE)
-    oq = build_old(Path(old_dir) / "quant_scores.cu", out_dir)
-    oh = build_old(Path(old_dir) / "hamming_scores.cu", out_dir)
+    oq = build_old(old_dir / "quant_scores.cu", out_dir)
+    oh = build_old(old_dir / "hamming_scores.cu", out_dir)
     for fn in ("fpv_sq_scores", "fpv_int4_scores"):
         getattr(oq, fn).argtypes = [P] * 6 + [I] * 4 + [P]
     for fn in ("fpv_hamming_mxu_scores", "fpv_hamming_scores"):
@@ -142,6 +285,17 @@ def main(old_dir: str) -> None:
     in_turns(f"hamming_scores B={b} N={block.shape[0]} W={block.shape[1]}",
              old_hamming("fpv_hamming_scores", block, torch.int32),
              lambda: hk.hamming_scores(qc, block), 0.0)
+
+
+def main(old_dir: str) -> None:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    out_dir = ROOT / "build" / "kernel_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    grouped_in_turns(Path(old_dir), out_dir)
+    torch.cuda.empty_cache()
+    scans_in_turns(Path(old_dir), out_dir)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

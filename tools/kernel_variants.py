@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the Hopper scan goes: time ``int4_scores`` and
-``hamming_mxu_scores`` at the two-stage paths' B=1024 x 1M x 768 with parts
-of ``csrc/hopper_scan.cuh`` switched off, on one CUDA card.
+"""Where the time of the hand kernels goes, on one CUDA card.
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py            # the Hopper scan (B4, B5)
+    python3 tools/kernel_variants.py grouped    # B2, B3 and B7
+
+The Hopper scan: time ``int4_scores`` and ``hamming_mxu_scores`` at the
+two-stage paths' B=1024 x 1M x 768 with parts of ``csrc/hopper_scan.cuh``
+switched off.
 
 Each variant is a copy of ``csrc/`` under ``build/kernel_variants/<name>``
 with one or more lines replaced (the outputs of such a copy are wrong; only
@@ -16,6 +19,17 @@ child process of its own with a time limit, in two rounds:
   no_store   the epilogue stages the scores but never stores them
   no_mma     the consumers issue no wgmma
   no_tma_no_expand   both
+
+``grouped``: ``grouped_cell_scores``, ``grouped_cell_scores_i8`` and
+``grouped_cell_scores_pq`` at the operands of ``chip_smoke.py``'s IVF and
+IVF-PQ paths (``tools/kernel_ab.py:main_path_operands``), each variant the
+sources as they are built with the switches of ``GROUPED_VARIANTS`` (design
+choices: B7's staged chunk size, narrowest tail tile, producer warps and
+bank-word padding, B2's second staging tile; and ablations whose outputs are wrong: no
+lookups, no table staging, no products, no stores).  One child process builds the
+operands once and times the variants in two rounds; if it runs into its
+time limit (a mis-sized barrier hangs the card), the variant it was at is
+dropped and a new child goes on with the rest.
 
 Prints one line a variant and round, then the card's nvidia-smi name and
 power limit.
@@ -122,10 +136,119 @@ def time_variant(name: str, rnd: str) -> None:
           f"hamming_mxu_scores {t5:.4f} ms", flush=True)
 
 
+# name: (source the switches apply to, extra nvcc flags)
+GROUPED_VARIANTS = {
+    "base": (None, []),
+    "pq_chunk512": ("pq", ["-DFPV_PQ_CHUNK_BYTES=512"]),
+    "pq_chunk1024": ("pq", ["-DFPV_PQ_CHUNK_BYTES=1024"]),
+    "pq_chunk1536": ("pq", ["-DFPV_PQ_CHUNK_BYTES=1536"]),
+    "pq_tails16": ("pq", ["-DFPV_PQ_MIN_W=16"]),
+    "pq_tails32": ("pq", ["-DFPV_PQ_MIN_W=32"]),
+    "pq_producers4": ("pq", ["-DFPV_PQ_PRODUCER_WARPS=4"]),
+    "pq_nopad": ("pq", ["-DFPV_PQ_PAD=0"]),
+    "pq_no_lookup": ("pq", ["-DFPV_PQ_NO_LOOKUP"]),
+    "pq_no_stage": ("pq", ["-DFPV_PQ_NO_STAGE"]),
+    "ivf_one_buf": ("ivf", ["-DFPV_GROUPED_ONE_BUF"]),
+    "ivf_no_store": ("ivf", ["-DFPV_GROUPED_NO_STORE"]),
+    "ivf_no_mma": ("ivf", ["-DFPV_GROUPED_NO_MMA"]),
+}
+GROUPED_SOURCES = {"ivf": "grouped_cell_scores", "pq": "grouped_cell_scores_pq"}
+PROGRESS = OUT / "grouped_progress.txt"
+
+
+def build_grouped() -> None:
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    procs = []
+    for name, (which, flags) in GROUPED_VARIANTS.items():
+        d = OUT / name
+        d.mkdir(parents=True, exist_ok=True)
+        for key, src in GROUPED_SOURCES.items():
+            if which not in (None, key):
+                continue
+            procs.append(subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o",
+                 str(d / f"lib{src}.so"), str(CSRC / f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(out)
+
+
+def time_grouped(todo) -> None:
+    """Child: time the (round, variant) pairs of ``todo`` in order."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
+    from kernel_ab import main_path_operands, ms
+    ops = main_path_operands()
+    calls = {
+        "ivf": (("grouped_cell_scores",
+                 lambda: ik.grouped_cell_scores(*ops["b2"], metric="cosine")),
+                ("grouped_cell_scores_i8",
+                 lambda: ik.grouped_cell_scores_i8(*ops["b3"],
+                                                   metric="cosine"))),
+        "pq": (("grouped_cell_scores_pq",
+                lambda: ik.grouped_cell_scores_pq(*ops["b7"])),)}
+    for item in todo:
+        rnd, name = item.split(":")
+        with PROGRESS.open("a") as f:
+            f.write(f"start {item}\n")
+        which = GROUPED_VARIANTS[name][0]
+        times = []
+        for key, mod_src in (("ivf", ik.SOURCE), ("pq", ik.SOURCE_PQ)):
+            if which not in (None, key):
+                continue
+            lib = ctypes.CDLL(str(OUT / name / f"lib{mod_src.name}.so"))
+            for fn, argtypes in mod_src.signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            mod_src._lib = lib
+            times += [f"{kernel} {ms(fn):.4f} ms" for kernel, fn in calls[key]]
+        torch.cuda.synchronize()
+        print(f"round {rnd} {name:20s} " + "  ".join(times), flush=True)
+        with PROGRESS.open("a") as f:
+            f.write(f"done {item}\n")
+
+
+def main_grouped() -> None:
+    build_grouped()
+    todo = [f"{rnd}:{name}" for rnd in range(2) for name in GROUPED_VARIANTS]
+    while todo:
+        PROGRESS.unlink(missing_ok=True)
+        try:
+            subprocess.run([sys.executable, __file__, "grouped-child", *todo],
+                           timeout=600, check=False)
+        except subprocess.TimeoutExpired:
+            pass
+        lines = PROGRESS.read_text().split("\n") if PROGRESS.exists() else []
+        done = {ln[5:] for ln in lines if ln.startswith("done ")}
+        started = [ln[6:] for ln in lines if ln.startswith("start ")]
+        hung = [it for it in started if it not in done]
+        if not done and not hung:
+            raise SystemExit("grouped variants: the child timed nothing")
+        for it in hung:
+            print(f"round {it.split(':')[0]} {it.split(':')[1]}: timed out "
+                  "or failed", flush=True)
+        todo = [it for it in todo if it not in done and it not in hung]
+
+
 def main() -> None:
-    if len(sys.argv) == 3:
+    if len(sys.argv) > 2 and sys.argv[1] == "grouped-child":
+        time_grouped(sys.argv[2:])
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "grouped":
+        main_grouped()
+    elif len(sys.argv) == 3:
         time_variant(sys.argv[1], sys.argv[2])
         return
+    else:
+        scan_variants()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+
+
+def scan_variants() -> None:
     build()
     for rnd in range(2):
         for name in VARIANTS:
@@ -134,9 +257,6 @@ def main() -> None:
                                timeout=120, check=False)
             except subprocess.TimeoutExpired:
                 print(f"round {rnd} {name}: timed out", flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where a batch's time goes in the int4 and binary two-stage modes, on one
-CUDA card.
+"""Where a batch's time goes in the int4 and binary two-stage modes, IVF-PQ
+and bf16 IVF, on one CUDA card.
 
     python3 tools/profile_modes.py
 
 Builds ``chip_smoke.py``'s corpus (1M x 768 cosine, clustered, fixed seed),
 enables each quantized scan with its re-rank depth tuned on held-out
-queries as ``chip_smoke.py`` does, then for each mode: one warm B=1024
+queries as ``chip_smoke.py`` does, builds IVF-PQ at its defaults (nprobe and
+re-rank tuned jointly, the limits ``chip_smoke.py`` gives the tuner) and, on
+a bf16 collection of the same rows, IVF with ``chip_smoke.py``'s recipe
+(at the nprobe that mode tunes to there); then for each mode: one warm B=1024
 batch, host wall time of 3 more distinct batches (each ends in a host copy,
 so it has synced), and ``torch.profiler`` over the same 3 batches.  Prints per
 mode the wall and busy milliseconds a batch (busy: the sum of device kernel
@@ -58,6 +61,7 @@ def main() -> None:
     import torch
     import chip_smoke as cs
     from fastpyvectordb_tpu_torch import VectorDB
+    from kernel_ab import MAIN_PATH_NPROBE
     if not torch.cuda.is_available():
         raise SystemExit("profile_modes: needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -81,6 +85,26 @@ def main() -> None:
             profile_mode(f"{kind} two-stage, rerank {scan.default_rerank}",
                          lambda qb: col.search_quantized_arrays(qb, k=cs.K),
                          qsets[1:])
+        col.build_ann("ivfpq", tune=False)
+        ann = col._ann
+        ann.tune(qsets[0][:256], target_recall=cs.TUNE_TARGET,
+                 max_nprobe=2 * ann.nprobe, max_rerank=256)
+        profile_mode(f"IVF-PQ grouped, nprobe {ann.nprobe}, rerank "
+                     f"{ann.rerank}",
+                     lambda qb: col.search_arrays(qb, k=cs.K), qsets[1:])
+        db.delete_collection("p")
+        del col, ann
+        torch.cuda.empty_cache()
+        bf = db.create_collection("bf16", dimensions=cs.DIMS, metric="cosine",
+                                  compute_dtype="bfloat16",
+                                  storage_dtype="bfloat16")
+        bf.insert_batch(host, [f"v{i}" for i in range(cs.N_ROWS)])
+        bf.build_ann("ivf", tune=False, **cs.IVF_BUILD)
+        # the nprobe chip_smoke.py's bf16 IVF mode tunes to on its held-out
+        # queries (this script's tuning set is another draw)
+        bf.set_search_params(nprobe=MAIN_PATH_NPROBE["b2"])
+        profile_mode(f"IVF bf16 grouped, nprobe {bf._ann.nprobe}",
+                     lambda qb: bf.search_arrays(qb, k=cs.K), qsets[1:])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
