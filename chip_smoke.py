@@ -8,16 +8,21 @@ Builds the hand-written CUDA kernels from ``fastpyvectordb_tpu_torch/csrc``
 PyTorch version on the card, then drives the main paths through the public
 API at the size ``bench.py`` uses: a clustered 1M x 768 cosine corpus made
 from a fixed seed, B=1024 query batches, k=10.  Modes: exact f32 (the
-ground truth), filtered exact, exact bf16, int8 two-stage and int4
-two-stage ``search_quantized``, the int8 ``pallas`` mode of
+ground truth), filtered exact, exact bf16, int8 two-stage (whose integer
+product is the ``s8_scores`` kernel) and int4 two-stage
+``search_quantized``, the int8 ``pallas`` mode of
 ``ScalarQuantizer.distances``; then the IVF path: ``build_ann("ivf")`` with
 int8 cells (``bench.py``'s ``ivf_grouped_int8_rr4``) and with bf16 cells,
 grouped and per-query dispatch, filtered IVF; then, on a third collection of
 the same rows, the binary two-stage scan (``enable_quantized_scan("binary")``
 and its ``rerank=1`` coarse path) and IVF-PQ (``build_ann("ivfpq")`` at its
 defaults, grouped and per-query, filtered); the pq scan kind once on a
-65,536-row collection; then save -> reload -> re-search.  Each path's kernel
-launch counts are zeroed just before it and read just after.
+65,536-row collection; then save -> reload -> re-search; then
+``BigCollection`` (host vectors, device codes): the int8 codec on all 1M
+rows, inserted in batches so that its buffers grow, searched, filtered,
+tombstoned, saved and reloaded, and the int4 and binary codecs on the first
+262,144 rows.  Each path's kernel launch counts are zeroed just before it
+and read just after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
 passed.  The last lines are a JSON object of per-kernel numbers (launches
@@ -87,6 +92,12 @@ def hamming_bound(b: int, n: int, w: int) -> dict:
                  "int8")
 
 
+def s8_bound(b: int, n: int, d: int) -> dict:
+    """B8 / B9: int8 queries and codes in, (b, n) int32 out; 2 b n d int8
+    operations."""
+    return bound(b * d + n * d + 4 * b * n, 2.0 * b * n * d, "int8")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -140,7 +151,8 @@ def phase_build():
     from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
     from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
-    sources = (qk.SOURCE, ik.SOURCE, ik.SOURCE_PQ, hk.SOURCE)
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    sources = (qk.SOURCE, ik.SOURCE, ik.SOURCE_PQ, hk.SOURCE, s8.SOURCE)
     t0 = time.perf_counter()
     cuda_build.build_all(*sources)
     log(f"[build] {', '.join(src.name + '.cu' for src in sources)} built "
@@ -324,6 +336,78 @@ def phase_hamming_kernels(queries, block):
     return out
 
 
+S8_LIBRARY = "torch._int_mm(q_int8, codes.T)"
+# B8 / B9 (B, N, D): B of one to five query tiles; N off the multiples of 4,
+# 8 and 128; D 48 / 100 / 768 (a partial K step, rows that 16-byte copies
+# cannot take); the main path's block
+S8_SHAPES = ((1, 64, 48), (17, 1001, 100), (1024, 4096, 768), (1025, 130, 48),
+             (33, 2050, 100), (70, 3004, 768), (5, 515, 129), (1024, 515, 768),
+             (BATCH, BLOCK_ROWS, DIMS))
+
+
+def check_s8(qi, codes, codes_t=None, label=""):
+    """B8 on (N, D) codes and B9 on their transpose against the plain
+    versions, each other and, where it takes the shape, the library call:
+    all bit for bit.  Returns B8's result."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    b, d = qi.shape
+    n = codes.shape[0]
+    if codes_t is None:
+        codes_t = codes.T.contiguous()
+    got = s8.s8_scores(qi, codes)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or got.shape != (b, n):
+        raise AssertionError(f"s8_scores{label}: bad output {got.shape}")
+    others = [("s8_scores_tn", lambda: s8.s8_scores_tn(qi, codes_t)),
+              ("s8_scores_plain", lambda: s8.s8_scores_plain(qi, codes)),
+              ("s8_scores_tn_plain",
+               lambda: s8.s8_scores_tn_plain(qi, codes_t))]
+    if b > 16 and d % 8 == 0 and n % 8 == 0:
+        others.append(("torch._int_mm", lambda: torch._int_mm(qi, codes.T)))
+    for name, fn in others:
+        other = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, other):
+            raise AssertionError(f"s8_scores != {name} at B={b} N={n} "
+                                 f"D={d}{label}")
+        del other
+    return got
+
+
+def phase_s8_kernels():
+    """B8 / B9 at ragged shapes and at the main path's block, then on codes
+    whose base is off the 16- and the 4-byte boundary."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rand8(shape, lo):
+        return torch.randint(lo, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    for b, n, d in S8_SHAPES:
+        check_s8(rand8((b, d), -127), rand8((n, d), -128))
+    log(f"[kernels] s8_scores, s8_scores_tn at {len(S8_SHAPES)} shapes "
+        f"{S8_SHAPES}: equal to their plain versions, to each other and "
+        "(where it takes the shape) to torch._int_mm, bit for bit")
+    b, n, d = 19, 777, 64
+    qi, c = rand8((b, d), -127), rand8((n, d), -128)
+    for off in (1, 4):
+        buf = torch.zeros(n * d + 16, dtype=torch.int8, device="cuda")
+        codes = buf[off:off + n * d].view(n, d).copy_(c)
+        want = check_s8(qi, c)
+        if not torch.equal(s8.s8_scores(qi, codes), want):
+            raise AssertionError(f"s8_scores: codes at base + {off} differ")
+        codes_t = buf[off:off + n * d].view(d, n).copy_(c.T)
+        if not torch.equal(s8.s8_scores_tn(qi, codes_t), want):
+            raise AssertionError(f"s8_scores_tn: codes at base + {off} "
+                                 "differ")
+    log("[kernels] s8_scores, s8_scores_tn on codes at base + 1 and + 4 "
+        "bytes: equal to the aligned result")
+    s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
+
+
 def host_scores(q, vecs, chunk: int = 100_000):
     """Cosine distances in float64 on the host: an independent reference."""
     import numpy as np
@@ -384,11 +468,53 @@ def int4_main_path(scan, queries):
             "shape": [BATCH, n, 2 * w], **bnd}
 
 
+def s8_main_path(scan, queries):
+    """B8 at the int8 path's own shape, as ``folded_int_scores`` calls it:
+    the B=1024 batch's folded int8 queries against the whole snapshot; B9 on
+    a transposed copy of the same codes.  Checked against the plain
+    versions, each other and the library call, then timed."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    qz, codes = scan.quantizer, scan.codes
+    # the query the int8 mode folds (quant/scalar.py:folded_int_scores)
+    qs = torch.as_tensor(queries, device="cuda") * (qz.scale / 255.0)[None, :]
+    qscale = qs.abs().max(dim=1, keepdim=True).values.clamp(min=1e-30) / 127.0
+    qi = torch.clamp(torch.round(qs / qscale), -127, 127).to(torch.int8)
+    codes_t = codes.T.contiguous()
+    check_s8(qi, codes, codes_t, " (int8 snapshot)")
+    n, d = codes.shape
+    out = {}
+    for name, fn, reps in (
+            ("s8_scores", lambda: s8.s8_scores(qi, codes), 5),
+            ("s8_scores_tn", lambda: s8.s8_scores_tn(qi, codes_t), 5),
+            ("plain", lambda: s8.s8_scores_plain(qi, codes), 1),
+            ("plain_tn", lambda: s8.s8_scores_tn_plain(qi, codes_t), 1),
+            ("library", lambda: torch._int_mm(qi, codes.T), 5)):
+        out[name] = cuda_ms(fn, reps=reps)
+    del codes_t
+    torch.cuda.empty_cache()
+    bnd = s8_bound(BATCH, n, d)
+    log(f"[kernels] s8_scores / s8_scores_tn main path B={BATCH} N={n} "
+        f"D={d}: equal to plain, to each other and to torch._int_mm; "
+        f"kernels {out['s8_scores']:.4f} / {out['s8_scores_tn']:.4f} ms, "
+        f"plain {out['plain']:.4f} / {out['plain_tn']:.4f} ms, library "
+        f"{out['library']:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']})")
+    s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
+    common = {"max_abs_err": 0.0, "library_ms": out["library"],
+              "library": S8_LIBRARY, "shape": [BATCH, n, d], **bnd}
+    return {"s8_scores": {"ms": out["s8_scores"], "plain_ms": out["plain"],
+                          **common},
+            "s8_scores_tn": {"ms": out["s8_scores_tn"],
+                             "plain_ms": out["plain_tn"], **common}}
+
+
 def phase_main_path(tmpdir: Path):
     import numpy as np
     import torch
     from fastpyvectordb_tpu_torch import Filter, VectorDB
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -411,9 +537,11 @@ def phase_main_path(tmpdir: Path):
     kernels.update(phase_hamming_kernels(
         torch.as_tensor(queries, device="cuda"), block))
     del block
+    phase_s8_kernels()
 
     # -- the counted main path ------------------------------------------
     qk.LAUNCHES.update({key: 0 for key in qk.LAUNCHES})
+    s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
     results = {}
     db = VectorDB(str(tmpdir), device="cuda")
     col = db.create_collection("main", dimensions=DIMS, metric="cosine")
@@ -477,7 +605,7 @@ def phase_main_path(tmpdir: Path):
         rec = recall_at_k(rows, truth)
         qps = timed_qps(lambda qb: col.search_quantized_arrays(qb, k=K),
                         timing_batches)
-        # a batch below the 17 rows torch._int_mm takes is padded (int8)
+        # a batch of a few rows takes the same kernels
         _, _, few = col.search_quantized_arrays(queries[:3], k=K)
         if recall_at_k(few, rows[:3]) < 0.9:
             raise AssertionError(f"{kind}: a 3-query batch disagrees with "
@@ -490,6 +618,8 @@ def phase_main_path(tmpdir: Path):
             f"QPS {qps:.1f}")
     if qk.LAUNCHES["int4_scores"] == 0:
         raise AssertionError("int4 two-stage ran without int4_scores")
+    if s8.LAUNCHES["s8_scores"] == 0:
+        raise AssertionError("int8 two-stage ran without s8_scores")
 
     scan8 = scans["int8"]
     qd = torch.as_tensor(queries, device="cuda")
@@ -504,9 +634,10 @@ def phase_main_path(tmpdir: Path):
         raise AssertionError(f"pallas vs int8mm modes differ by {gap:.3g}")
     log(f"[main] ScalarQuantizer.distances(mode='pallas') on "
         f"{BATCH}x{BLOCK_ROWS}: max gap to int8mm {gap:.3g}")
-    launches = dict(qk.LAUNCHES)
+    launches = {**qk.LAUNCHES, **s8.LAUNCHES}
     log(f"[main] kernel launches on the main path: {launches}")
     kernels["int4_scores"] = int4_main_path(scans["int4"], queries)
+    kernels.update(s8_main_path(scan8, queries))
 
     ivf_kernels, ivf_launches = phase_ivf(col, bf, queries, tune_queries,
                                           timing_batches, truth, bf_truth,
@@ -571,6 +702,10 @@ def phase_main_path(tmpdir: Path):
         f"{col2._ann.nprobe}); compressed: binary ids {rec_b:.4f} of "
         f"before (rerank {cc2._quantized.default_rerank}), IVF-PQ ids "
         f"identical (nprobe {cc2._ann.nprobe}, rerank {cc2._ann.rerank})")
+    del col2, cc2, db2
+    torch.cuda.empty_cache()
+    phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
+                        timing_batches, truth, results)
     return kernels, launches, results
 
 
@@ -1108,6 +1243,161 @@ def phase_pq_scan(db, host, queries, timing_batches, results):
     db.delete_collection("pq")
 
 
+BIG_ROWS_SMALL = 262_144      # depth of the int4 and binary BigCollections
+BIG_INSERT_BATCHES = 4
+
+
+def big_rows(hits):
+    """Row numbers of a ``search_batch`` result whose ids are ``v<row>``,
+    -1 where a query has fewer hits."""
+    import numpy as np
+    rows = np.full((len(hits), K), -1, dtype=np.int64)
+    for b, hl in enumerate(hits):
+        rows[b, :len(hl)] = [int(h.id[1:]) for h in hl]
+    return rows
+
+
+def phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
+                        timing_batches, truth, results):
+    """``BigCollection``: vectors on the host, codes on the card, exact
+    re-rank on the host.  The int8 codec on all 1M rows (its coarse scan is
+    kernel B8 under the folded product): inserted in batches so that the
+    code buffers grow, searched, filtered, tombstoned, saved and reloaded
+    into a new object.  The int4 (B4) and binary (B5) codecs on the first
+    262,144 rows, against that subset's exact top-k."""
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch import BigCollection, Filter
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+
+    def reset():
+        for mod in (hk, qk, s8):
+            mod.LAUNCHES.update({key: 0 for key in mod.LAUNCHES})
+
+    def counts():
+        return {k: v for mod in (hk, qk, s8) for k, v in mod.LAUNCHES.items()
+                if v}
+
+    # -- int8, all rows ----------------------------------------------------
+    t0 = time.perf_counter()
+    big = BigCollection(DIMS, metric="cosine", codec="int8",
+                        base_path=tmpdir / "big_int8", device="cuda")
+    caps = []
+    step = -(-N_ROWS // BIG_INSERT_BATCHES)
+    for s in range(0, N_ROWS, step):
+        big.insert_batch(host[s:s + step], ids[s:s + step],
+                         metas[s:s + step])
+        caps.append(big._code_cap)
+    torch.cuda.synchronize()
+    st = big.stats()
+    log(f"[big] int8: {N_ROWS} rows in {len(caps)} batches in "
+        f"{time.perf_counter() - t0:.1f} s, code capacity {caps}, {st}")
+    if (big.count() != N_ROWS or len(set(caps)) < 2 or caps[-1] != 1 << 20
+            or st["device_code_capacity_bytes"] != (1 << 20) * DIMS
+            or big._codes.device.type != "cuda"):
+        raise AssertionError(f"big int8: unexpected layout {caps} {st}")
+    reset()
+    hits = big.search_batch(queries, k=K)
+    launches = counts()
+    rows = big_rows(hits)
+    rec = recall_at_k(rows, truth)
+    scores = np.array([[h.score for h in hl] for hl in hits])
+    if scores.shape != (BATCH, K) or not np.isfinite(scores).all() \
+            or not (np.diff(scores, axis=1) >= 0).all():
+        raise AssertionError("big int8: scores are not K sorted finite hits")
+    if launches.get("s8_scores", 0) == 0:
+        raise AssertionError(f"big int8 ran without s8_scores: {launches}")
+    if rec < RECALL_GATE:
+        raise AssertionError(f"big int8: recall@10 {rec:.4f} < {RECALL_GATE}")
+    # the final scores are exact: hold a few against the f64 host scan
+    ref = host_scores(queries[:4], host)
+    gap = np.abs(scores[:4] - np.take_along_axis(ref, rows[:4], axis=1)).max()
+    if gap > 1e-5:
+        raise AssertionError(f"big int8: score gap {gap:.3g} to a f64 scan")
+    qps = timed_qps(lambda qb: big.search_batch(qb, k=K), timing_batches[:2])
+    fhits = big.search_batch(queries[:64], k=K, filter=Filter.eq("cat", 3))
+    frows = big_rows(fhits)
+    if not (frows % 10 == 3).all():    # an empty slot (-1) fails too
+        raise AssertionError("big int8 filtered: a hit does not match")
+    fref = np.sort(host_scores(queries[:64], host[3::10]), axis=1)[:, :K]
+    frec = float(np.mean(np.abs(np.array(
+        [[h.score for h in hl] for hl in fhits]) - fref) <= 1e-5))
+    if frec < RECALL_GATE:
+        raise AssertionError(f"big int8 filtered: {frec:.4f} of the exact "
+                             "filtered scores")
+    dead = [hl[0].id for hl in hits[:32]]
+    if big.delete_batch(dead) != len(set(dead)):
+        raise AssertionError("big int8: delete_batch missed an id")
+    after = big.search_batch(queries[:32], k=K)
+    if any(h.id in set(dead) for hl in after for h in hl):
+        raise AssertionError("big int8: a deleted id came back")
+    t0 = time.perf_counter()
+    big.save()
+    before = big_rows(big.search_batch(queries[:128], k=K))
+    del big
+    torch.cuda.empty_cache()
+    big2 = BigCollection(DIMS, base_path=tmpdir / "big_int8", device="cuda")
+    same = recall_at_k(big_rows(big2.search_batch(queries[:128], k=K)),
+                       before)
+    if (big2.codec != "int8" or big2.count() != N_ROWS - len(set(dead))
+            or same < 0.999):
+        raise AssertionError(f"big int8 reload: ids {same:.4f} of before")
+    results["big_int8"] = {"recall": rec, "qps": qps, "rerank": big2.rerank,
+                           "launches": launches, "filtered_exact": frec}
+    log(f"[big] int8: {results['big_int8']}; max score gap to a f64 host "
+        f"scan {gap:.3g}; {len(set(dead))} deletes stay gone; save + reload "
+        f"in {time.perf_counter() - t0:.1f} s, ids {same:.4f} of before")
+    del big2
+    torch.cuda.empty_cache()
+
+    # -- int4 and binary, the first 262,144 rows ----------------------------
+    n = BIG_ROWS_SMALL
+    sub = torch.as_tensor(host[:n], device="cuda")
+
+    def sub_truth(q):
+        qd = torch.nn.functional.normalize(torch.as_tensor(q, device="cuda"),
+                                           dim=1)
+        return torch.topk(qd @ sub.T, K, dim=1).indices.cpu().numpy()
+
+    truth_n, tune_truth = sub_truth(queries), sub_truth(tune_queries[:64])
+    del sub
+    for codec, kernel in (("int4", "int4_scores"),
+                          ("binary", "hamming_mxu_scores")):
+        t0 = time.perf_counter()
+        col = BigCollection(DIMS, metric="cosine", codec=codec, device="cuda")
+        col.insert_batch(host[:n], ids[:n], metas[:n])
+        # the pool a codec needs is a property of the corpus: double the
+        # re-rank depth on held-out queries until it clears the target
+        rerank = col.rerank
+        while rerank < 256 and recall_at_k(big_rows(col.search_batch(
+                tune_queries[:64], k=K, rerank=rerank)),
+                tune_truth) < TUNE_TARGET:
+            rerank *= 2
+        col.rerank = rerank
+        build_s = time.perf_counter() - t0
+        reset()
+        rows = big_rows(col.search_batch(queries, k=K))
+        launches = counts()
+        if launches.get(kernel, 0) == 0:
+            raise AssertionError(f"big {codec} ran without {kernel}: "
+                                 f"{launches}")
+        rec = recall_at_k(rows, truth_n)
+        if rec < RECALL_GATE:
+            raise AssertionError(f"big {codec}: recall@10 {rec:.4f} < "
+                                 f"{RECALL_GATE} at rerank {rerank}")
+        results[f"big_{codec}_{n}"] = {
+            "recall": rec,
+            "qps": timed_qps(lambda qb: col.search_batch(qb, k=K),
+                             timing_batches[:1]),
+            "rerank": rerank, "launches": launches, "build_s": build_s}
+        log(f"[big] {codec} on {n} rows: {results[f'big_{codec}_{n}']}, "
+            f"{col.memory_usage()}")
+        del col
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch  # noqa: F401 - a missing torch fails here, with no result
     if not (ROOT / "fastpyvectordb_tpu_torch").is_dir():
@@ -1118,20 +1408,23 @@ def main() -> int:
     phase_build()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels, launches, results = phase_main_path(Path(tmp))
+    pq, pi = ("fastpyvectordb_tpu/kernels/pallas_quant.py",
+              "fastpyvectordb_tpu/kernels/pallas_ivf.py")
+    lab = "benchmarks/int8_mxu_lab.py"
     where = {  # kernel: (source, the TPU kernel it replaces)
-        "sq_scores": ("quant_scores.cu", "pallas_quant.py:81"),
-        "int4_scores": ("quant_scores.cu", "pallas_quant.py:163"),
-        "grouped_cell_scores": ("grouped_cell_scores.cu", "pallas_ivf.py:102"),
-        "grouped_cell_scores_i8": ("grouped_cell_scores.cu",
-                                   "pallas_ivf.py:234"),
-        "hamming_mxu_scores": ("hamming_scores.cu", "pallas_quant.py:241"),
-        "hamming_scores": ("hamming_scores.cu", "pallas_quant.py:292"),
-        "grouped_cell_scores_pq": ("grouped_cell_scores_pq.cu",
-                                   "pallas_ivf.py:179")}
+        "sq_scores": ("quant_scores.cu", f"{pq}:81"),
+        "int4_scores": ("quant_scores.cu", f"{pq}:163"),
+        "grouped_cell_scores": ("grouped_cell_scores.cu", f"{pi}:102"),
+        "grouped_cell_scores_i8": ("grouped_cell_scores.cu", f"{pi}:234"),
+        "hamming_mxu_scores": ("hamming_scores.cu", f"{pq}:241"),
+        "hamming_scores": ("hamming_scores.cu", f"{pq}:292"),
+        "grouped_cell_scores_pq": ("grouped_cell_scores_pq.cu", f"{pi}:179"),
+        "s8_scores": ("s8_scores.cu", f"{lab}:50"),
+        "s8_scores_tn": ("s8_scores.cu", f"{lab}:72")}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"fastpyvectordb_tpu_torch/csrc/{src}",
-         "replaces": f"fastpyvectordb_tpu/kernels/{tpu}",
+         "replaces": tpu,
          "launches": launches[name], **kernels[name]}
         for name, (src, tpu) in where.items()],
         "modes": results}

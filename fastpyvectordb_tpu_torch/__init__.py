@@ -1,11 +1,16 @@
 """fastpyvectordb_tpu_torch — the PyTorch/CUDA port of fastpyvectordb_tpu.
 
-The same collection API and on-disk format as the JAX package, on torch
-tensors: the exact scan and the int8 / int4 two-stage quantized scans,
-with hand-written Hopper kernels for the quantized scores
-(``kernels/quant_kernels.py``, ``csrc/quant_scores.cu``).  Everything runs
-on ``device="cuda"`` unless the caller passes ``device="cpu"``.  This
-package never imports jax.
+The same collection API and on-disk formats as the JAX package, on torch
+tensors: ``VectorDB`` / ``Collection`` with the exact scan, the int8 / int4
+/ binary / pq two-stage quantized scans, IVF (flat, grouped, int8 cells)
+and IVF-PQ; the standalone quantizers; and ``BigCollection`` (host vectors,
+device codes) for corpora beyond device memory.  Every TPU Pallas kernel of
+the JAX package has a hand-written Hopper counterpart under ``csrc/``
+(``quant_scores.cu``, ``hamming_scores.cu``, ``s8_scores.cu``,
+``grouped_cell_scores.cu``, ``grouped_cell_scores_pq.cu``), built with
+``nvcc`` at first use and wrapped, each beside its plain PyTorch version,
+in ``kernels/``.  Everything runs on ``device="cuda"`` unless the caller
+passes ``device="cpu"``.  This package never imports jax.
 """
 
 from .core.types import (  # noqa: F401
@@ -15,6 +20,7 @@ from .core.types import (  # noqa: F401
 )
 from .core.filters import Filter, FilterOp  # noqa: F401
 from .core.collection import Collection  # noqa: F401
+from .core.bigcollection import BigCollection  # noqa: F401
 from .core.vectordb import VectorDB  # noqa: F401
 from .state import collection_from_sections  # noqa: F401
 
@@ -27,6 +33,7 @@ __all__ = [
     "Filter",
     "FilterOp",
     "Collection",
+    "BigCollection",
     "VectorDB",
     "collection_from_sections",
     "__version__",

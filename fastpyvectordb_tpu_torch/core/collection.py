@@ -169,10 +169,18 @@ class Collection:
         return list(ids)
 
     def upsert(self, vector, id: str, metadata: Optional[dict] = None) -> str:
-        """Insert, replacing any row with the same id, under the lock."""
+        return self.upsert2(vector, id, metadata)[0]
+
+    def upsert2(self, vector, id: str, metadata: Optional[dict] = None
+                ) -> Tuple[str, bool]:
+        """Upsert reporting (id, existed) atomically under the lock:
+        callers deciding UPDATE-vs-INSERT semantics must not race a
+        separate pre-read against the write."""
         with self._lock:
-            self.delete(id)
-            return self.insert(vector, id, metadata)
+            existed = id in self._id_to_row
+            if existed:
+                self.delete(id)
+            return self.insert(vector, id, metadata), existed
 
     def get(self, id: str, include_vector: bool = False) -> Optional[dict]:
         return self.get_batch([id], include_vector)[0]
@@ -293,6 +301,22 @@ class Collection:
         rows = np.where(ok, rows, -1).astype(np.int32, copy=False)
         return ids, dists, rows
 
+    def metadata_for_rows(self, rows: np.ndarray) -> list:
+        """Per-row metadata dict copies for ``search_arrays`` results
+        (row < 0 -> None), fetched under the collection lock."""
+        with self._lock:
+            md = self._metadata
+            n = len(md)
+            return [[dict(md[r] or {}) if 0 <= r < n else None
+                     for r in row] for row in np.asarray(rows).tolist()]
+
+    def brute_force_search(self, query, k: int = 10,
+                           filter: Optional[Filter] = None,
+                           include_vectors: bool = False
+                           ) -> List[SearchResult]:
+        """Exact search (always the flat path)."""
+        return self.search(query, k, filter, include_vectors, exact=True)
+
     def _search_rows(self, q, k: int, filter: Optional[Filter],
                      exact: Optional[bool]):
         """Shared dispatch: (ANN | exact masked scan | installed serving
@@ -411,6 +435,16 @@ class Collection:
             self._columns_dirty = None
             self._columns_patchset.clear()
         return self._columns
+
+    def ids_matching(self, filter: Filter) -> List[str]:
+        """Ids of live rows whose metadata matches ``filter``: one
+        vectorized mask pass."""
+        with self._lock:
+            mask = self._filter_mask(filter)
+            if mask is None:
+                return self.all_ids()
+            return [rid for rid, hit in zip(self._row_to_id, mask)
+                    if hit and rid is not None]
 
     def _filter_mask(self, filter: Optional[Filter]) -> Optional[np.ndarray]:
         """Compile a Filter to a host boolean mask over rows [0, count),
@@ -699,6 +733,15 @@ class Collection:
 
     def __len__(self) -> int:
         return self.count()
+
+    def list_ids(self, limit: int = 100, offset: int = 0) -> List[str]:
+        with self._lock:
+            live = [i for i in self._row_to_id if i is not None]
+            return live[offset: offset + limit]
+
+    def all_ids(self) -> List[str]:
+        with self._lock:
+            return [i for i in self._row_to_id if i is not None]
 
     def stats(self) -> dict:
         return {

@@ -24,6 +24,7 @@ import torch
 
 from ..kernels import distances as K
 from ..utils import next_pow2 as _next_pow2
+from ..utils import resolve_device
 
 MIN_CAPACITY = 1024
 
@@ -44,11 +45,11 @@ class DeviceVectorStore:
     """Append-only device buffer of vectors with tombstone deletes."""
 
     def __init__(self, dims: int, capacity: int = MIN_CAPACITY,
-                 storage_dtype: str = "float32", device="cpu"):
+                 storage_dtype: str = "float32", device=None):
         self.dims = int(dims)
         self.storage_dtype = storage_dtype
         self._tdtype = getattr(torch, storage_dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cap = _next_bucket(max(capacity, MIN_CAPACITY))
         self._alloc(cap)
         self.count = 0          # rows ever allocated (high-water mark)
@@ -188,7 +189,7 @@ class DeviceVectorStore:
     @classmethod
     def from_arrays(cls, vectors: np.ndarray, valid: np.ndarray,
                     storage_dtype: str = "float32",
-                    device="cpu") -> "DeviceVectorStore":
+                    device=None) -> "DeviceVectorStore":
         n, d = vectors.shape
         store = cls(d, capacity=max(n, MIN_CAPACITY),
                     storage_dtype=storage_dtype, device=device)

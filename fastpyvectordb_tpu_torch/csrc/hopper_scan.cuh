@@ -18,7 +18,9 @@
 //     128-byte-swizzled tile; every thread copies one corpus row's packed
 //     codes for the step with cp.async (threads 0-31 also the step's
 //     Op table), and the stage's `full` mbarrier completes when all of
-//     these have landed.
+//     these have landed.  Where a step's corpus tile is itself 128 rows x
+//     128 bytes of a row-major matrix (the s8 scan), the first thread
+//     loads it with TMA as well and the others only arrive.
 //   * warpgroups 0 and 1, the consumers: 64 corpus rows each.  For each
 //     16- (bf16) or 32-deep (int8) slice a thread expands its fragment's
 //     codes (Op::fragment: dequantise to bf16, or bits to +-1 int8) into
@@ -30,9 +32,10 @@
 //     thread sums its fragment's share and a quad of lanes adds them up:
 //     the rows a thread sums are the rows of its accumulators.  The
 //     epilogue turns the accumulators into scores (Op::score), writes them
-//     64 queries x 64 rows at a time into a swizzled staging tile, and
-//     stores that with TMA; the tile's last store drains while the next
-//     tile's products run.  Where N is not a multiple of 4 (TMA needs
+//     32 queries x 64 rows a round into one half of a swizzled staging
+//     tile, and stores that with TMA while the next round fills the other
+//     half; the tile's last stores drain while the next tile's products
+//     run.  Where N is not a multiple of 4 (TMA needs
 //     16-byte rows) they are stored from registers instead.
 //
 // setmaxnreg moves registers from the producer to the consumers.  The
@@ -64,8 +67,9 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 224;
 static_assert(PRODUCERS * kProducerRegs + CONSUMERS * kConsumerRegs <=
                   65536 - 2048, "register budget");
-constexpr int OUT_BOX = 64 * 32 * 4;      // one 64 x 32 4-byte TMA store box
-constexpr int STAGING = 2 * OUT_BOX;      // a consumer's 64 x 64 staging tile
+constexpr int OUT_BOX = 32 * 32 * 4;      // one 32 x 32 4-byte TMA store box
+constexpr int HALF = 2 * OUT_BOX;         // a round: 32 queries x 64 rows
+constexpr int STAGING = 2 * HALF;         // a consumer's two staging halves
 
 // shared memory of the scan: two staging tiles, then per stage the query
 // tile, Op's codes and table (Op::STAGE_EXTRA bytes) and two barriers
@@ -82,8 +86,9 @@ template <class Op>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_kernel(const __grid_constant__ CUtensorMap qmap,
             const __grid_constant__ CUtensorMap omap,
+            const __grid_constant__ CUtensorMap cmap,
             const typename Op::Params p, int ntiles, int qtiles, int ksteps,
-            int tma_out) {
+            int tma_out, int tma_codes) {
   using L = Layout<Op>;
   constexpr int STAGES = Op::STAGES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -118,12 +123,24 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
           tma_load_2d(st, &qmap, &full[stage], k * Op::KSTEP_ELEMS,
                       (tile % qtiles) * BQ);
         }
-        // copies with cp.async arrive when they land; others (ragged rows,
-        // written by this thread) arrive at once
-        if (Op::fetch(p, st + Q_BYTES, r, n, k))
+        // a corpus tile that is the stage's whole extra (tma_codes) comes
+        // by TMA too, the first thread arriving a second time with its
+        // bytes; else every thread copies its row: copies with cp.async
+        // arrive when they land; others (ragged rows, written by this
+        // thread) arrive at once
+        if (tma_codes) {
+          if (r == 0) {
+            mbar_arrive_tx(&full[stage], Op::STAGE_EXTRA);
+            tma_load_2d(st + Q_BYTES, &cmap, &full[stage],
+                        k * Op::KSTEP_ELEMS, (tile / qtiles) * BC);
+          } else {
+            mbar_arrive(&full[stage]);
+          }
+        } else if (Op::fetch(p, st + Q_BYTES, r, n, k)) {
           mbar_arrive_cp_async(&full[stage]);
-        else
+        } else {
           mbar_arrive(&full[stage]);
+        }
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -185,33 +202,38 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
       const int n0 = (tile / qtiles) * BC + 64 * g;      // this group's rows
       const int cq = 2 * (lane % 4);
       if (tma_out) {
-        // 64 queries x 64 rows at a time through the staging tile: two
-        // swizzled 64 x 32 boxes, stored by the warpgroup's first thread
+        // 32 queries x 64 rows a round through one half of the staging
+        // tile (two swizzled 32 x 32 boxes) while TMA still reads the other
+        // half: every round commits a group, so once "all but the last"
+        // have been read, the store that used this half is done with it
 #pragma unroll
-        for (int qc = 0; qc < 4; ++qc) {
-          if (tid % 128 == 0) bulk_wait_read();
+        for (int r = 0; r < 8; ++r) {
+          if (tid % 128 == 0) bulk_wait_read<1>();
           named_sync(1 + g, 128);
+          uint8_t* buf = out_s + (r & 1) * HALF;
 #pragma unroll
-          for (int ii = 0; ii < 8; ++ii) {
-            const int i = 8 * qc + ii;
+          for (int ii = 0; ii < 4; ++ii) {
+            const int i = 4 * r + ii;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int qr = 8 * ii + cq + (e & 1);        // query in the box
               const int col = 16 * w + lane / 4 + 8 * (e >> 1);
-              const float qv = Op::query_value(p, min(m0 + 64 * qc + qr,
+              const float qv = Op::query_value(p, min(m0 + 32 * r + qr,
                                                       p.B - 1));
               const typename Op::Out s =
                   Op::score(p, d[4 * i + e], qv, e < 2 ? cv0 : cv1);
               *reinterpret_cast<typename Op::Out*>(
-                  out_s + (col / 32) * OUT_BOX +
+                  buf + (col / 32) * OUT_BOX +
                   sw128_chunk(qr, (col % 32) / 4) + 4 * (col % 4)) = s;
             }
           }
           fence_proxy_async();
           named_sync(1 + g, 128);
-          if (tid % 128 == 0 && n0 < p.N && m0 + 64 * qc < p.B) {
-            tma_store_2d(&omap, out_s, n0, m0 + 64 * qc);
-            tma_store_2d(&omap, out_s + OUT_BOX, n0 + 32, m0 + 64 * qc);
+          if (tid % 128 == 0) {
+            if (n0 < p.N && m0 + 32 * r < p.B) {
+              tma_store_2d(&omap, buf, n0, m0 + 32 * r);
+              tma_store_2d(&omap, buf + OUT_BOX, n0 + 32, m0 + 32 * r);
+            }
             bulk_commit();
           }
         }
@@ -235,23 +257,32 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // Launch scan_kernel<Op> over the (B, N) output.  `q` is the (B, kp)
 // query copy of `qtype` (bf16 or 8-bit), kp a multiple of one K step.
-// Returns a cudaError_t as int: the last error after the launch, or the
-// reason the launch was refused.
+// `corpus`, if given, is a row-major (N, ccols) byte matrix whose (BC rows x
+// 128 bytes) tiles are a stage's whole extra in the 128-byte swizzle, with
+// 16-byte-aligned rows: TMA loads them in place of Op::fetch.  Returns a
+// cudaError_t as int: the last error after the launch, or the reason the
+// launch was refused.
 template <class Op>
 int launch(const void* q, CUtensorMapDataType qtype, int elem_bytes, int kp,
-           const typename Op::Params& p, void* stream) {
+           const typename Op::Params& p, void* stream,
+           const void* corpus = nullptr, int ccols = 0) {
   if (p.B <= 0 || p.N <= 0) return int(cudaGetLastError());
   const int kstep = ROW_BYTES / elem_bytes;
   if (kp <= 0 || kp % kstep != 0 ||
       (reinterpret_cast<uintptr_t>(q) % 16) != 0)
     return int(cudaErrorInvalidValue);
-  CUtensorMap qmap, omap;
+  CUtensorMap qmap, omap, cmap = {};
   if (!encode_2d(&qmap, qtype, elem_bytes, q, p.B, kp, BQ, kstep))
+    return int(cudaErrorInvalidValue);
+  if (corpus != nullptr &&
+      (Op::STAGE_EXTRA != BC * ROW_BYTES ||
+       !encode_2d(&cmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, corpus, p.N, ccols,
+                  BC, ROW_BYTES)))
     return int(cudaErrorInvalidValue);
   // the output goes out by TMA where its rows are whole 16-byte units
   const int tma_out = (p.N % 4) == 0 &&
                       (reinterpret_cast<uintptr_t>(p.out) % 16) == 0;
-  if (tma_out && !encode_2d(&omap, Op::OUT_TYPE, 4, p.out, p.B, p.N, 64, 32))
+  if (tma_out && !encode_2d(&omap, Op::OUT_TYPE, 4, p.out, p.B, p.N, 32, 32))
     return int(cudaErrorInvalidValue);
 
   const int bytes = 1024 + Layout<Op>::BYTES;
@@ -266,7 +297,8 @@ int launch(const void* q, CUtensorMapDataType qtype, int elem_bytes, int kp,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int grid = int(tiles < sms ? tiles : sms);   // persistent blocks
   scan_kernel<Op><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      qmap, omap, p, int(tiles), qtiles, kp / kstep, tma_out);
+      qmap, omap, cmap, p, int(tiles), qtiles, kp / kstep, tma_out,
+      corpus != nullptr);
   return int(cudaGetLastError());
 }
 

@@ -1,0 +1,241 @@
+// Exact s8 x s8 -> s32 corpus scans for Hopper (sm_90a): (B, D) int8
+// queries against a whole int8 corpus -> (B, N) int32 inner products.
+//
+// Replaces the TPU Pallas kernels in benchmarks/int8_mxu_lab.py:
+//   fpv_s8_scores    <- pallas_s8    (_s8_kernel):    codes row-major (N, D)
+//   fpv_s8_scores_tn <- pallas_s8_tn (_s8_tn_kernel): codes transposed (D, N)
+// One templated kernel (hopper_scan.cuh's scan_kernel with S8Op); the two
+// entries differ only in how the producer brings a corpus tile into shared
+// memory.  The Pallas grid's "N a multiple of the tile" rule is not carried
+// over: any B, N and D are taken and the ragged edges are masked here.
+//
+// What it computes, per (query b, corpus row n):
+//   out[b, n] = sum_d q[b, d] * c[n, d]
+// on the tensor cores in s32, so the result is exact and equals an integer
+// matrix product bit for bit (|q|, |c| <= 128: sums over any practical D
+// stay far inside s32).
+//
+// What bounds it: at the int8 path's B=1024 x N=1M x D=768 the product is
+// 2*B*N*D = 1.65 T int8 operations, 0.83 ms at 1,979 TOP/s; its bytes are
+// the (B, N) 4-byte output (4.29 GB), the codes (0.81 GB) and the queries,
+// 1.52 ms at 3.35 TB/s.  So it is bound by the output write.
+//
+// What the design does about it: wgmma (m64n256k32, s8 -> s32) on tiles of
+// 128 corpus rows x 256 queries in a persistent, warp-specialised block
+// (hopper_scan.cuh), with the corpus rows as wgmma's M side, taken from
+// registers.  The wrapper hands over a (B, Kp) int8 query copy (zero past
+// D, Kp a multiple of 128), which TMA loads into a 4-stage ring of swizzled
+// tiles.  Beside each query tile the producer warpgroup lays the step's
+// corpus tile, 128 rows x 128 code bytes, and the consumers read their A
+// fragments from it one 4-byte word a register.  A row is 128 bytes, so
+// the eight rows that a warp reads together would fall on the same banks:
+// both layouts swizzle the tile so that these loads, and the producer's
+// stores, touch 32 different banks.
+//   (N, D): the tile is one TMA load a step beside the query tile's, in
+//     TMA's 128-byte swizzle (chunk c of row r at place c ^ (r & 7)); rows
+//     and dims past N and D arrive as zeros.  Copying it with cp.async, a
+//     row a thread, cost 1.2 of 2.7 ms at the main path's shape.  Rows
+//     whose pitch or base is not a multiple of 16 bytes are loaded and
+//     stored a byte at a time by the producer threads, in the same layout.
+//   (D, N): wgmma takes 8-bit operands K-major only, so the tile is
+//     transposed on the way in.  Eight lanes read one d-row's 128
+//     contiguous n-bytes (16 bytes a lane), a thread holds four d-rows of
+//     its 16 corpus rows, transposes the four 4 x 4 byte blocks with byte
+//     permutes and stores 16 words, one to each of its corpus rows.  The
+//     swizzle of this layout is keyed on bits 0-2 and 4-6 of the row,
+//     which keeps those stores (rows 16 apart across the lanes) on
+//     different banks as well.
+// The epilogue stores the accumulators as they are through a swizzled
+// staging tile with TMA.
+
+#include "hopper_scan.cuh"
+
+namespace {
+
+template <bool TN>
+struct S8Op {
+  using Acc = int;
+  using Out = int;
+  static constexpr CUtensorMapDataType OUT_TYPE = CU_TENSOR_MAP_DATA_TYPE_INT32;
+  static constexpr int KSTEP_ELEMS = 128;   // int8 a step
+  static constexpr int CODE_BYTES = 128;    // a row a step
+  static constexpr int STAGE_EXTRA = fpv::BC * CODE_BYTES;
+  static constexpr int STAGES = 4;
+
+  struct Params {
+    int B, N;
+    int* out;             // (B, N)
+    const uint8_t* codes; // (N, D), or (D, N) for TN
+    int D;
+    int vec;              // aligned rows: TMA tiles (N, D), 16-byte loads (D, N)
+  };
+
+  // byte offset in the stage's corpus tile of 4-byte word `wi` (0..31) of
+  // corpus row `r` (0..127)
+  static __device__ __forceinline__ int word_off(int r, int wi) {
+    const int key = TN ? (r & 7) ^ ((r >> 4) & 7) : (r & 7);
+    return r * CODE_BYTES + (((wi >> 2) ^ key) << 4) + ((wi & 3) << 2);
+  }
+
+  // bring K step k of the tile whose row r is corpus row n into the stage,
+  // zero past D or N (false: no copy went by cp.async)
+  static __device__ __forceinline__ bool fetch(const Params& p, uint8_t* ex,
+                                               int r, int n, int k) {
+    if (TN) return fetch_tn(p, ex, r, n - r, k);
+    // (N, D) rows that TMA cannot address (a pitch or a base off the
+    // 16-byte boundary): thread r loads row n a byte at a time
+    const int b0 = k * CODE_BYTES;
+    const uint8_t* src = p.codes + (size_t)n * p.D + b0;
+    uint8_t* row = ex + r * CODE_BYTES;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (n < p.N) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (b0 + 16 * c + j < p.D)
+            w[j / 4] |= uint32_t(__ldg(src + 16 * c + j)) << (8 * (j % 4));
+      }
+      *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    return false;
+  }
+
+  // the (D, N) layout: the step's tile is 32 d-blocks (4 d-rows each) x 8
+  // groups of 16 corpus rows; lane r % 8 takes group r % 8 of d-blocks
+  // 16 i + r / 8 (i = 0, 1) of the tile that starts at corpus row n0
+  static __device__ __forceinline__ bool fetch_tn(const Params& p, uint8_t* ex,
+                                                  int r, int n0, int k) {
+    const int row = 16 * (r % 8);
+    const int n = n0 + row;
+#pragma unroll 1
+    for (int i = 0; i < 2; ++i) {
+      const int blk = 16 * i + r / 8;
+      const int d0 = k * KSTEP_ELEMS + 4 * blk;
+      uint32_t w[4][4];   // [d-row][4 corpus rows]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint8_t* src = p.codes + (size_t)(d0 + e) * p.N + n;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (d0 + e < p.D && n < p.N) {
+          if (p.vec) {
+            v = __ldg(reinterpret_cast<const uint4*>(src));
+          } else {
+            uint32_t b[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+              if (n + j < p.N)
+                b[j / 4] |= uint32_t(__ldg(src + j)) << (8 * (j % 4));
+            v = make_uint4(b[0], b[1], b[2], b[3]);
+          }
+        }
+        w[e][0] = v.x;
+        w[e][1] = v.y;
+        w[e][2] = v.z;
+        w[e][3] = v.w;
+      }
+      // 4 x 4 byte transposes: word j of sub-block c = the four d-bytes of
+      // corpus row n + 4c + j
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t t0 = __byte_perm(w[0][c], w[1][c], 0x5140);
+        const uint32_t t1 = __byte_perm(w[2][c], w[3][c], 0x5140);
+        const uint32_t t2 = __byte_perm(w[0][c], w[1][c], 0x7362);
+        const uint32_t t3 = __byte_perm(w[2][c], w[3][c], 0x7362);
+        const int rc = row + 4 * c;
+        *reinterpret_cast<uint32_t*>(ex + word_off(rc, blk)) =
+            __byte_perm(t0, t1, 0x5410);
+        *reinterpret_cast<uint32_t*>(ex + word_off(rc + 1, blk)) =
+            __byte_perm(t0, t1, 0x7632);
+        *reinterpret_cast<uint32_t*>(ex + word_off(rc + 2, blk)) =
+            __byte_perm(t2, t3, 0x5410);
+        *reinterpret_cast<uint32_t*>(ex + word_off(rc + 3, blk)) =
+            __byte_perm(t2, t3, 0x7632);
+      }
+    }
+    return false;
+  }
+
+  // the A fragment of slice kk (code bytes 32kk .. 32kk + 31 of the step)
+  // for rows frow, frow + 8: a[0] / a[1] bytes 4q .. 4q + 3 of each row's
+  // slice, a[2] / a[3] bytes 16 + 4q .. (q = lane % 4)
+  static __device__ __forceinline__ void fragment(const Params&,
+                                                  const uint8_t* ex, int frow,
+                                                  int lane, int kk,
+                                                  uint32_t (&a)[4], float&,
+                                                  float&) {
+    const int wi = 8 * kk + lane % 4;
+    a[0] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow, wi));
+    a[1] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow + 8, wi));
+    a[2] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow, wi + 4));
+    a[3] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow + 8, wi + 4));
+  }
+
+  static __device__ __forceinline__ void mma(int (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " FPV_D128
+        ", {%128, %129, %130, %131}, %132, p;\n"
+        "}\n"
+        : FPV_ACC128(FPV_R)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+
+  static __device__ __forceinline__ float row_value(const Params&, float) {
+    return 0.0f;
+  }
+
+  static __device__ __forceinline__ float query_value(const Params&, int) {
+    return 0.0f;
+  }
+
+  static __device__ __forceinline__ int score(const Params&, int dot, float,
+                                              float) {
+    return dot;
+  }
+};
+
+template <bool TN>
+int launch(const void* q, const void* codes, void* out, int B, int N, int D,
+           int kp, void* stream) {
+  using Op = S8Op<TN>;
+  // the kp positions must cover the D dims and no more than one step past
+  if (D <= 0 || kp % Op::KSTEP_ELEMS != 0 || kp < D ||
+      kp - Op::KSTEP_ELEMS >= D)
+    return int(cudaErrorInvalidValue);
+  typename Op::Params p;
+  p.B = B;
+  p.N = N;
+  p.out = static_cast<int*>(out);
+  p.codes = static_cast<const uint8_t*>(codes);
+  p.D = D;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
+  p.vec = ((TN ? N : D) % 16) == 0 && (base % 16) == 0;
+  // row-major codes with aligned rows come tile by tile through TMA
+  return fpv::launch<Op>(q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kp, p, stream,
+                         (!TN && p.vec) ? codes : nullptr, D);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, kp) int8 query copy (zero past D), codes (N, D) int8; out (B, N)
+// int32 inner products.  Returns a cudaError_t as int.
+int fpv_s8_scores(const void* q, const void* codes, void* out, int B, int N,
+                  int D, int kp, void* stream) {
+  return launch<false>(q, codes, out, B, N, D, kp, stream);
+}
+
+// As above with the corpus stored transposed: codes_t (D, N) int8.
+int fpv_s8_scores_tn(const void* q, const void* codes_t, void* out, int B,
+                     int N, int D, int kp, void* stream) {
+  return launch<true>(q, codes_t, out, B, N, D, kp, stream);
+}
+
+}  // extern "C"

@@ -14,11 +14,11 @@ Sections are either raw ndarrays (zero-copy mmap-able), JSON documents, or
 opaque bytes.  Every subsystem (vector store, quantizer codebooks, IVF
 layout, graph embeddings, BM25 state) serializes through this one format.
 
-This is a copy of ``fastpyvectordb_tpu/persist/format.py``'s container
-half (that module cannot be imported without jax, because its
-package ``__init__`` imports jax): a file written by either package loads
-in the other.  The streaming out-of-core writer/reader is not on the
-ported path yet.
+This is the port's own copy of ``fastpyvectordb_tpu/persist/format.py``
+(that module cannot be imported without jax, because its package
+``__init__`` imports jax): the container, the streaming out-of-core vector
+file and the lossy vector compression, all pure numpy.  A file written by
+either package loads in the other, byte for byte.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import os
 import struct
 import zlib
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 
@@ -189,3 +189,243 @@ class Container:
 
 def load_container(path: Union[str, Path], mmap_arrays: bool = True) -> Container:
     return Container(path, mmap_arrays=mmap_arrays)
+
+
+# ---------------------------------------------------------------------------
+# Streaming out-of-core vector file (append-friendly)
+# ---------------------------------------------------------------------------
+
+_STREAM_MAGIC = b"FPVS"
+_STREAM_HEADER = struct.Struct("<4sBxxxQQ")  # magic, version, n_rows, dims
+
+
+class StreamingVectorWriter:
+    """Append vectors one batch at a time to a flat binary file.
+
+    Layout: 24-byte header, then raw float32 rows.  The row count in the
+    header is only advanced *after* the data is flushed, so a crash leaves a
+    consistent prefix (fixing the reference's claimed-but-broken atomicity,
+    parallel_search.py:438 vs 590-594).  Ids/metadata live in JSONL sidecars
+    (`<path>.ids.jsonl` / `<path>.meta.jsonl`, one line per row) flushed on
+    every append — so the crash-consistent prefix covers them too, and an
+    existing file can be reopened to resume appending (``resume=True``).
+    """
+
+    def __init__(self, path: Union[str, Path], dims: int,
+                 resume: bool = True):
+        self.path = Path(path)
+        self.dims = int(dims)
+        self.n_rows = 0
+        self.ids: list = []
+        self.metadata: list = []
+        existing = resume and self.path.exists() \
+            and self.path.stat().st_size >= _STREAM_HEADER.size
+        if existing:
+            self._f = open(self.path, "r+b")
+            magic, version, n_rows, dims_on_disk = _STREAM_HEADER.unpack(
+                self._f.read(_STREAM_HEADER.size))
+            if magic != _STREAM_MAGIC:
+                raise ValueError(f"{path}: not an FPVS stream")
+            if int(dims_on_disk) != self.dims:
+                raise ValueError(
+                    f"{path}: dims mismatch (file {dims_on_disk}, "
+                    f"requested {self.dims})")
+            self.n_rows = int(n_rows)
+            self.ids, ids_keep = _read_jsonl_sidecar(
+                self._ids_path, self.n_rows)
+            self.metadata, meta_keep = _read_jsonl_sidecar(
+                self._meta_path, self.n_rows)
+        else:
+            self._f = open(self.path, "w+b")
+            self._write_header()
+            ids_keep = meta_keep = None
+        # sidecar handles: truncate any crash-orphaned lines past n_rows
+        # (O(1) when the committed prefix is intact; rewrite otherwise)
+        self._ids_f = _open_jsonl_sidecar(self._ids_path, self.ids,
+                                          keep_bytes=ids_keep)
+        self._meta_f = _open_jsonl_sidecar(self._meta_path, self.metadata,
+                                           keep_bytes=meta_keep)
+
+    @property
+    def _ids_path(self) -> Path:
+        return Path(str(self.path) + ".ids.jsonl")
+
+    @property
+    def _meta_path(self) -> Path:
+        return Path(str(self.path) + ".meta.jsonl")
+
+    def _write_header(self) -> None:
+        self._f.seek(0)
+        self._f.write(_STREAM_HEADER.pack(_STREAM_MAGIC, 1, self.n_rows, self.dims))
+        self._f.flush()
+
+    def append(self, vector: np.ndarray, id: Optional[str] = None,
+               metadata: Optional[dict] = None) -> None:
+        self.append_batch(np.asarray(vector, dtype=np.float32)[None, :],
+                          [id] if id is not None else None,
+                          [metadata] if metadata is not None else None)
+
+    def append_batch(self, vectors: np.ndarray, ids=None, metadatas=None) -> None:
+        arr = np.ascontiguousarray(vectors, dtype=np.float32)
+        if arr.ndim != 2 or arr.shape[1] != self.dims:
+            raise ValueError(f"expected (n, {self.dims}) batch, got {arr.shape}")
+        n = arr.shape[0]
+        ids = list(ids) if ids is not None else [None] * n
+        metadatas = list(metadatas) if metadatas is not None else [None] * n
+        if len(ids) != n or len(metadatas) != n:
+            raise ValueError("ids/metadatas length mismatch with batch")
+        self._f.seek(_STREAM_HEADER.size + self.n_rows * self.dims * 4)
+        self._f.write(arr.tobytes())
+        # sidecars flush *before* the row-count advances: a crash mid-append
+        # leaves extra sidecar lines (trimmed by n_rows on read) rather than
+        # counted rows with missing ids
+        for fh, values in ((self._ids_f, ids), (self._meta_f, metadatas)):
+            fh.write("".join(json.dumps(v, default=_json_default) + "\n"
+                             for v in values))
+            fh.flush()
+            os.fsync(fh.fileno())
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self.n_rows += n
+        self._write_header()
+        self.ids.extend(ids)
+        self.metadata.extend(metadatas)
+
+    def close(self) -> None:
+        if self._f.closed:
+            return
+        self._write_header()
+        self._f.close()
+        self._ids_f.close()
+        self._meta_f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _read_jsonl_sidecar(path: Path, n_rows: int):
+    """First ``n_rows`` JSONL lines (crash-orphaned suffix lines ignored),
+    padded with None up to ``n_rows``.  Falls back to the round-1 whole-list
+    ``.json`` sidecar if the JSONL file does not exist.
+
+    Returns ``(rows, keep_bytes)`` where keep_bytes is the byte offset just
+    past the last kept line (None when the file must be rewritten — legacy
+    format or missing): truncating there trims a crash-orphaned suffix in
+    O(1) instead of re-serializing every committed line on reopen."""
+    out: list = []
+    keep_bytes = None
+    if path.exists():
+        keep_bytes = 0
+        with open(path, "rb") as f:
+            for raw in f:
+                if len(out) >= n_rows:
+                    break
+                line = raw.strip()
+                if line:
+                    out.append(json.loads(line))
+                    keep_bytes = f.tell()
+    else:
+        legacy = Path(str(path)[: -len(".jsonl")] + ".json")
+        if legacy.exists():
+            out = json.loads(legacy.read_text())[:n_rows]
+    if len(out) < n_rows:        # short sidecar: pad + full rewrite
+        keep_bytes = None
+    out.extend([None] * (n_rows - len(out)))
+    return out, keep_bytes
+
+
+def _open_jsonl_sidecar(path: Path, rows: list, keep_bytes=None):
+    """(Re)open a sidecar for appending.  With ``keep_bytes`` (the byte
+    offset past the last committed line) the crash-orphaned suffix is
+    trimmed with one truncate; otherwise the file is rewritten from the
+    committed rows so legacy-format content can never misalign lines."""
+    if keep_bytes is not None and path.exists():
+        f = open(path, "r+", encoding="utf-8")
+        f.truncate(keep_bytes)
+        f.seek(0, os.SEEK_END)
+        return f
+    f = open(path, "w", encoding="utf-8")
+    if rows:
+        f.write("".join(json.dumps(v, default=_json_default) + "\n" for v in rows))
+        f.flush()
+        os.fsync(f.fileno())
+    return f
+
+
+class StreamingVectorReader:
+    """Random-access / iterator reader over a StreamingVectorWriter file."""
+
+    def __init__(self, path: Union[str, Path]):
+        self.path = Path(path)
+        with open(self.path, "rb") as f:
+            magic, version, n_rows, dims = _STREAM_HEADER.unpack(
+                f.read(_STREAM_HEADER.size))
+        if magic != _STREAM_MAGIC:
+            raise ValueError(f"{path}: not an FPVS stream")
+        self.n_rows = int(n_rows)
+        self.dims = int(dims)
+        self._mm = np.memmap(self.path, dtype=np.float32, mode="r",
+                             offset=_STREAM_HEADER.size,
+                             shape=(self.n_rows, self.dims))
+        ids_jsonl = Path(str(self.path) + ".ids.jsonl")
+        ids_json = Path(str(self.path) + ".ids.json")
+        self.ids = (_read_jsonl_sidecar(ids_jsonl, self.n_rows)[0]
+                    if ids_jsonl.exists() or ids_json.exists() else None)
+        meta_jsonl = Path(str(self.path) + ".meta.jsonl")
+        meta_json = Path(str(self.path) + ".meta.json")
+        self.metadata = (_read_jsonl_sidecar(meta_jsonl, self.n_rows)[0]
+                         if meta_jsonl.exists() or meta_json.exists()
+                         else None)
+
+    def load_batch(self, start: int, count: int) -> np.ndarray:
+        return np.array(self._mm[start: start + count])
+
+    def __len__(self) -> int:
+        return self.n_rows
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        for i in range(self.n_rows):
+            yield np.array(self._mm[i])
+
+    def close(self) -> None:
+        del self._mm
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ---------------------------------------------------------------------------
+# Lossy vector compression (reference: binary_persistence.py:333-385)
+# ---------------------------------------------------------------------------
+
+def compress_vectors(vectors: np.ndarray, method: str = "none"):
+    """Returns (payload ndarray, params dict).  Methods: none | fp16 | int8."""
+    v = np.asarray(vectors, dtype=np.float32)
+    if method == "none":
+        return v, {"method": "none"}
+    if method == "fp16":
+        return v.astype(np.float16), {"method": "fp16"}
+    if method == "int8":
+        vmin = float(v.min()) if v.size else 0.0
+        vmax = float(v.max()) if v.size else 1.0
+        scale = (vmax - vmin) / 255.0 or 1.0
+        q = np.clip(np.round((v - vmin) / scale), 0, 255).astype(np.uint8)
+        return q, {"method": "int8", "min": vmin, "scale": scale}
+    raise ValueError(f"unknown compression method {method!r}")
+
+
+def decompress_vectors(payload: np.ndarray, params: dict) -> np.ndarray:
+    method = params.get("method", "none")
+    if method == "none":
+        return np.asarray(payload, dtype=np.float32)
+    if method == "fp16":
+        return np.asarray(payload, dtype=np.float32)
+    if method == "int8":
+        return payload.astype(np.float32) * params["scale"] + params["min"]
+    raise ValueError(f"unknown compression method {method!r}")

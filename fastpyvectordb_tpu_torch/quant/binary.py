@@ -23,6 +23,7 @@ import torch
 from ..kernels import hamming_kernels
 from ..kernels.topk import masked_top_k
 from ..persist.format import load_container, save_container
+from ..utils import resolve_device
 
 CHUNK = 32768    # rows packed at a time (bounds the int64 bit block)
 
@@ -95,7 +96,8 @@ class BinaryQuantizer:
         else:
             raise ValueError(f"unknown threshold method {method!r}")
         thr = torch.from_numpy(np.ascontiguousarray(thr, dtype=np.float32))
-        self.thresholds = thr if self.device is None else thr.to(self.device)
+        self.device = resolve_device(self.device)
+        self.thresholds = thr.to(self.device)
         return self
 
     def _as_rows(self, vectors) -> torch.Tensor:
@@ -152,7 +154,8 @@ class BinaryQuantizer:
                        meta={"kind": "binary_quantizer", "dims": self.dims})
 
     @classmethod
-    def load(cls, path, device="cpu") -> "BinaryQuantizer":
+    def load(cls, path, device=None) -> "BinaryQuantizer":
+        device = resolve_device(device)
         c = load_container(path)
         bq = cls(dims=c.meta["dims"], device=device)
         bq.thresholds = torch.from_numpy(

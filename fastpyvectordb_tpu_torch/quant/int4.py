@@ -26,6 +26,7 @@ from ..kernels import quant_kernels
 from ..kernels.quant_kernels import unpack_int4
 from ..kernels.topk import masked_top_k
 from ..persist.format import load_container, save_container
+from ..utils import resolve_device
 from .scalar import (CHUNK, _chunked_scores, _train, as_tensor,
                      folded_int_scores, int8_cross, row_stats)
 
@@ -173,7 +174,8 @@ class Int4Quantizer:
         }, meta={"kind": "int4_quantizer", "dims": self.dims})
 
     @classmethod
-    def load(cls, path, device="cpu") -> "Int4Quantizer":
+    def load(cls, path, device=None) -> "Int4Quantizer":
+        device = resolve_device(device)
         c = load_container(path)
         qz = cls(dims=c.meta["dims"], device=device)
         qz.vmin = as_tensor(c.read("vmin"), device)

@@ -23,6 +23,7 @@ import torch
 
 from ..kernels.topk import masked_top_k
 from ..persist.format import load_container, save_container
+from ..utils import resolve_device
 from .kmeans import kmeans_fit_batched
 
 CHUNK = 8192
@@ -111,8 +112,7 @@ class ProductQuantizer:
             data = data[idx]
         sub = torch.from_numpy(np.ascontiguousarray(
             data.reshape(-1, self.m, self.subdim).transpose(1, 0, 2)))
-        if self.device is not None:
-            sub = sub.to(self.device)
+        sub = sub.to(resolve_device(self.device))
         self.codebooks = kmeans_fit_batched(
             sub, seed, k=self.k, iters=iters,
             chunk=min(16384, max(256, sub.shape[1])))
@@ -168,7 +168,8 @@ class ProductQuantizer:
                              "m": self.m, "k": self.k})
 
     @classmethod
-    def load(cls, path, device="cpu") -> "ProductQuantizer":
+    def load(cls, path, device=None) -> "ProductQuantizer":
+        device = resolve_device(device)
         c = load_container(path)
         pq = cls(dims=c.meta["dims"], m=c.meta["m"], k=c.meta["k"],
                  device=device)

@@ -8,7 +8,8 @@ packages.  Distance modes:
 
   int8mm  — one s8 x s8 -> s32 product against the raw codes with the
             dequantisation folded into a per-query int8 query; the default
-            on CUDA (``torch._int_mm``; a plain integer matmul on the CPU)
+            on CUDA (the ``s8_scores`` kernel, kernels/s8_kernels.py; a
+            plain integer matmul on the CPU)
   pallas  — the dequantise-on-load ``sq_scores`` kernel
             (kernels/quant_kernels.py; the JAX mode name is kept so callers
             port unchanged)
@@ -22,24 +23,26 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.types import DistanceMetric
 from ..kernels import quant_kernels
+from ..kernels.s8_kernels import s8_scores
 from ..kernels.topk import masked_top_k
 from ..persist.format import load_container, save_container
+from ..utils import resolve_device
 
 CHUNK = 16384
 
 
 def as_tensor(x, device=None) -> torch.Tensor:
     """Tensors pass through (moved to ``device`` if given); arrays become
-    float32 tensors."""
+    float32 tensors on ``device`` — with none given on the card, as every
+    entry point of the package (``utils.resolve_device``)."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     # "W": read-only arrays (memmapped container sections) are copied
     t = torch.from_numpy(np.require(x, np.float32, ["C", "W"]))
-    return t if device is None else t.to(device)
+    return t.to(resolve_device(device))
 
 
 def _train(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,26 +97,10 @@ def _distances(queries, codes, vmin, scale, *, metric) -> torch.Tensor:
 
 
 def int8_cross(qi: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """(B, D) int8 x (N, D) int8 -> (B, N) int32 exact inner products.
-
-    CUDA: ``torch._int_mm`` (cuBLASLt) wants more than 16 rows, inner and
-    outer sizes that are multiples of 8, and the codes as a column-major
-    (D, N) operand — ``codes.T`` of the row-major buffer is exactly that.
-    Small batches pad to 32 rows; dims or a row count off the multiple of 8
-    pad the codes with zeros (a per-call copy, only for such shapes:
-    collection snapshots keep their row count a multiple of 8).  CPU: a
-    plain int32 matmul."""
-    if not codes.is_cuda:
-        return qi.to(torch.int32) @ codes.to(torch.int32).T
-    b, d = qi.shape
-    n = codes.shape[0]
-    if d % 8 or n % 8:
-        qi = F.pad(qi, (0, -d % 8))
-        codes = F.pad(codes, (0, -d % 8, 0, -n % 8))
-    bp = max(32, -(-b // 8) * 8)
-    if bp != b:
-        qi = F.pad(qi, (0, 0, 0, bp - b))
-    return torch._int_mm(qi, codes.T)[:b, :n]
+    """(B, D) int8 x (N, D) int8 -> (B, N) int32 exact inner products: the
+    ``s8_scores`` kernel on CUDA (any B, N, D, no padding copies), a plain
+    int32 matmul on the CPU."""
+    return s8_scores(qi, codes)
 
 
 def folded_int_scores(queries, codes, vmin, rs, bias, vsq, rinv, metric,
@@ -248,7 +235,8 @@ class ScalarQuantizer:
         }, meta={"kind": "scalar_quantizer", "dims": self.dims})
 
     @classmethod
-    def load(cls, path, device="cpu") -> "ScalarQuantizer":
+    def load(cls, path, device=None) -> "ScalarQuantizer":
+        device = resolve_device(device)
         c = load_container(path)
         sq = cls(dims=c.meta["dims"], device=device)
         sq.vmin = as_tensor(c.read("vmin"), device)

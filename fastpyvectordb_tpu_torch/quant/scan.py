@@ -1,7 +1,8 @@
 """Two-stage quantized scan: compressed first pass -> exact re-rank (port of
 ``fastpyvectordb_tpu/quant/scan.py``: the int8, int4, binary and pq kinds).
 
-  stage 1: quantized distances over all rows (int8: folded s8 x s8 product;
+  stage 1: quantized distances over all rows (int8: folded s8 x s8 product,
+           the ``s8_scores`` kernel;
            int4: the ``int4_scores`` kernel; binary: the packed-Hamming
            ``hamming_mxu_scores`` kernel; pq: the ADC table scan) + masked
            top-c candidates;
@@ -191,9 +192,9 @@ def _normalized_host(q: np.ndarray) -> np.ndarray:
 class QuantizedScan:
     """Compressed snapshot of a collection's live rows + 2-stage search."""
 
-    # per-dispatch budget for the coarse (B, N) f32 score block of the
-    # kernel-scored kinds (int4, binary), which their kernels write to
-    # device memory.  4 GB holds the B=1024 x 1M-row block in one dispatch
+    # per-dispatch budget for the coarse (B, N) score block of the
+    # kernel-scored kinds (int8, int4, binary), which their kernels write
+    # to device memory.  4 GB holds the B=1024 x 1M-row block in one dispatch
     # (the main path); larger corpora split the batch so peak memory stays
     # bounded.  Kept at the JAX value rather than derived from free memory:
     # a bigger block buys no speed, since the kernels' time is linear in
@@ -317,15 +318,15 @@ class QuantizedScan:
             q = q[None, :]
         b = q.shape[0]
         n = int(self.codes.shape[0])
-        # cap the kernel-written (B, N) f32 score block (int4, binary) at
-        # the budget: split the batch into pow2 sub-batches (int8's product
-        # is a library GEMM whose block is the same size, but the JAX
-        # package streams it)
+        # cap the kernel-written (B, N) 4-byte score block at the budget:
+        # split the batch into pow2 sub-batches (the JAX package leaves
+        # int8 whole because XLA streams its scores; here the s8 scan
+        # writes the block like the other kernels)
         cap = max(8, int(self._score_hbm_budget // (max(n, 1) * 4)))
         sub = 8
         while sub * 2 <= cap:
             sub *= 2
-        if self.kind in ("int4", "binary") and b > sub:
+        if self.kind in _FUSED and b > sub:
             parts = [self.search(q[s:s + sub], k, rerank, mask)
                      for s in range(0, b, sub)]
             return (np.concatenate([p[0] for p in parts]),

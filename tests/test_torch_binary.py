@@ -159,7 +159,7 @@ def test_quantizer_save_load_cross_package(tmp_path):
     v, _ = _data()
     jb = JBinary().train(v)
     jb.save(tmp_path / "j.fpvt")
-    tb = TBinary.load(tmp_path / "j.fpvt")
+    tb = TBinary.load(tmp_path / "j.fpvt", device="cpu")
     np.testing.assert_array_equal(tb.thresholds.numpy(),
                                   np.asarray(jb.thresholds))
     tb.save(tmp_path / "t.fpvt")

@@ -276,7 +276,79 @@ def test_unported_paths_raise_and_keep_ann_data(tmp_path):
         T.VectorDB(tmp_path / "jw", device="cpu")
 
 
-def test_default_device_is_cuda():
+def _tombstoned_pair():
+    (_, jc), (_, tc), v, q = _pair("cosine")
+    dead = [f"v{i}" for i in range(0, N, 9)]
+    assert jc.delete_batch(dead) == tc.delete_batch(dead)
+    return jc, tc, v, q
+
+
+def test_upsert2_reports_whether_the_id_existed():
+    jc, tc, v, _ = _tombstoned_pair()
+    # a live id, a tombstoned id (v0 was deleted) and a new one
+    for rid, vec in (("v5", v[1]), ("v0", v[2]), ("fresh", v[3])):
+        want = jc.upsert2(vec, rid, {"cat": 9})
+        got = tc.upsert2(vec, rid, {"cat": 9})
+        assert got == want and isinstance(got[1], bool)
+    assert [jc.upsert2(v[4], "v5")[1], tc.upsert2(v[4], "v5")[1]] == [True] * 2
+    assert tc.upsert(v[6], "v7", {"cat": 1}) == jc.upsert(v[6], "v7",
+                                                          {"cat": 1}) == "v7"
+    assert tc.count() == jc.count() and tc.get("v0") == jc.get("v0")
+    np.testing.assert_array_equal(tc.get("v7", True)["vector"],
+                                  jc.get("v7", True)["vector"])
+
+
+def test_metadata_for_rows_copies_and_masks_out_of_range():
+    jc, tc, _, q = _tombstoned_pair()
+    _, _, rows = tc.search_arrays(q, k=6, filter=T.Filter.eq("cat", 3))
+    rows = np.concatenate([rows, np.full((len(q), 1), -1),
+                           np.full((len(q), 1), N + 5),
+                           np.zeros((len(q), 1), int)], axis=1)  # v0: dead
+    want, got = jc.metadata_for_rows(rows), tc.metadata_for_rows(rows)
+    assert got == want
+    assert got[0][6] is None and got[0][7] is None and got[0][8] == {}
+    got[0][0]["cat"] = "changed"                    # copies, not views
+    assert tc.metadata_for_rows(rows)[0][0]["cat"] == 3
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_brute_force_search_is_the_exact_scan(metric):
+    (_, jc), (_, tc), _, q = _pair(metric)
+    for c in (jc, tc):
+        c.delete_batch([f"v{i}" for i in range(0, N, 9)])
+        c.build_ann("ivf", tune=False, nlist=16)
+    flt_j, flt_t = J.Filter.eq("cat", 3), T.Filter.eq("cat", 3)
+    for kw_j, kw_t in (({}, {}), ({"filter": flt_j}, {"filter": flt_t})):
+        jh = jc.brute_force_search(q[0], k=7, **kw_j)
+        th = tc.brute_force_search(q[0], k=7, **kw_t)
+        assert [h.id for h in th] == [h.id for h in jh]
+        assert [h.metadata for h in th] == [h.metadata for h in jh]
+        np.testing.assert_allclose([h.score for h in th],
+                                   [h.score for h in jh], rtol=RTOL,
+                                   atol=1e-6)
+        exact = tc.search(q[0], k=7, exact=True, **kw_t)
+        assert [h.id for h in th] == [h.id for h in exact]
+    vec = tc.brute_force_search(q[0], k=2, include_vectors=True)[0]
+    np.testing.assert_array_equal(vec.vector,
+                                  tc.get(vec.id, True)["vector"])
+
+
+def test_ids_matching_list_ids_and_all_ids():
+    jc, tc, _, _ = _tombstoned_pair()
+    flt_j = J.Filter.and_([J.Filter.eq("cat", 2), J.Filter.gt("year", 2010)])
+    flt_t = T.Filter.and_([T.Filter.eq("cat", 2), T.Filter.gt("year", 2010)])
+    want = jc.ids_matching(flt_j)
+    assert tc.ids_matching(flt_t) == want and 0 < len(want) < tc.count()
+    assert "v0" not in want and tc.ids_matching(T.Filter.eq("cat", 77)) == []
+    assert tc.all_ids() == jc.all_ids() and len(tc.all_ids()) == tc.count()
+    assert "v0" not in tc.all_ids()
+    for kw in ({}, {"limit": 7}, {"limit": 5, "offset": 3},
+               {"limit": 10, "offset": tc.count() - 4}):
+        assert tc.list_ids(**kw) == jc.list_ids(**kw)
+    assert len(tc.list_ids()) == 100 and tc.list_ids(3, 1) == tc.all_ids()[1:4]
+
+
+def test_default_device_is_cuda(tmp_path):
     # construction with no device means CUDA; on a host without a card
     # it raises instead of falling back to the CPU
     if torch.cuda.is_available():
@@ -286,6 +358,31 @@ def test_default_device_is_cuda():
         T.VectorDB(None)
     with pytest.raises(RuntimeError, match="cuda"):
         T.Collection(T.CollectionConfig(name="x", dimensions=4))
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.BigCollection(4)
+    # the standalone quantizers too: host arrays go to the card unless the
+    # caller names the CPU, and so does a loaded quantizer
+    from fastpyvectordb_tpu_torch.core.store import DeviceVectorStore
+    from fastpyvectordb_tpu_torch.quant.binary import BinaryQuantizer
+    from fastpyvectordb_tpu_torch.quant.int4 import Int4Quantizer
+    from fastpyvectordb_tpu_torch.quant.product import ProductQuantizer
+    from fastpyvectordb_tpu_torch.quant.scalar import ScalarQuantizer
+    v = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    for cls in (ScalarQuantizer, Int4Quantizer, BinaryQuantizer,
+                lambda **kw: ProductQuantizer(m=2, k=4, **kw)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cls().train(v)
+        assert cls(device="cpu").train(v).encode(v).device.type == "cpu"
+        # a tensor keeps its own device
+        assert cls().train(torch.as_tensor(v)).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceVectorStore(8)
+    sq = ScalarQuantizer(device="cpu").train(v)
+    sq.save(tmp_path / "sq.fpvt")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ScalarQuantizer.load(tmp_path / "sq.fpvt")
+    assert ScalarQuantizer.load(tmp_path / "sq.fpvt",
+                                device="cpu").vmin.device.type == "cpu"
 
 
 def test_port_never_imports_jax(tmp_path):
@@ -297,6 +394,8 @@ def test_port_never_imports_jax(tmp_path):
         import numpy as np
         import fastpyvectordb_tpu_torch as T
         import fastpyvectordb_tpu_torch.ann.ivfpq  # binary, pq, all kernels
+        import fastpyvectordb_tpu_torch.kernels.s8_kernels
+        import fastpyvectordb_tpu_torch.persist.format
         from fastpyvectordb_tpu_torch.state import collection_from_sections
         db = T.VectorDB(sys.argv[1], device="cpu")
         c = db.create_collection("c", dimensions=8)
@@ -306,6 +405,18 @@ def test_port_never_imports_jax(tmp_path):
                                   )[0][0].id == "a"
         db.save()
         assert T.VectorDB(sys.argv[1], device="cpu")["c"].count() == 8
+        c.enable_quantized_scan("int8", tune=False)
+        assert c.search_quantized(np.eye(8, dtype=np.float32)[:1], k=1
+                                  )[0][0].id == "a"
+        big = T.BigCollection(8, codec="int8", base_path=sys.argv[1] + "/big",
+                              device="cpu")
+        big.insert_batch(np.eye(8, dtype=np.float32), list("abcdefgh"))
+        big.save()
+        assert T.BigCollection(8, base_path=sys.argv[1] + "/big",
+                               device="cpu").search(
+            np.eye(8, dtype=np.float32)[2], k=1)[0].id == "c"
+        assert not any(m.startswith(("fastpyvectordb_tpu.", "benchmarks"))
+                       or m == "fastpyvectordb_tpu" for m in sys.modules)
         assert not any(m in ("jax", "ml_dtypes")
                        or m.startswith(("jax.", "jaxlib"))
                        for m in sys.modules if sys.modules[m] is not None)
@@ -316,3 +427,25 @@ def test_port_never_imports_jax(tmp_path):
                          capture_output=True, text=True, cwd=root,
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quantized_batch_splits_at_the_score_budget(kind, monkeypatch):
+    # every kernel-scored kind writes a (B, N) 4-byte block: a batch whose
+    # block would pass the budget is searched in power-of-two sub-batches,
+    # with the same hits
+    from fastpyvectordb_tpu_torch.quant import scan as tscan
+    (_, _), (_, tc), _, q = _pair("cosine")
+    tc.enable_quantized_scan(kind, tune=False)
+    whole = tc.search_quantized_arrays(q, k=10)
+    n_rows = tc._quantized.codes.shape[0]
+    monkeypatch.setattr(tscan.QuantizedScan, "_score_hbm_budget",
+                        8 * n_rows * 4)          # 8-query sub-batches
+    calls = []
+    name = f"_{kind}_two_stage"
+    orig = getattr(tscan, name)
+    monkeypatch.setattr(tscan, name,
+                        lambda *a, **kw: calls.append(a[0].shape[0])
+                        or orig(*a, **kw))
+    _same(whole, tc.search_quantized_arrays(q, k=10), rtol=1e-6)
+    assert calls == [8, 8, 8]

@@ -201,12 +201,23 @@ def test_cuda_kernels_match_plain(metric):
 @pytest.mark.parametrize("b,n,d", [(3, 500, 41), (40, 501, 64),
                                    (33, 512, 64)])
 def test_cuda_int8mm_pads_for_int_mm(b, n, d):
-    # torch._int_mm takes more than 16 rows and sizes that are multiples of
-    # 8: small batches, odd dims and odd row counts are padded on CUDA, and
-    # the integer products must equal the CPU's exactly
+    # the int8mm mode's product is the s8_scores kernel, which takes small
+    # batches, odd dims and odd row counts as they are (the library call it
+    # replaced wanted them padded): no padding copy is made, and the integer
+    # products must equal the CPU's exactly
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from fastpyvectordb_tpu_torch.quant.scalar import ScalarQuantizer
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    from fastpyvectordb_tpu_torch.quant.scalar import (ScalarQuantizer,
+                                                       int8_cross)
+    rng = np.random.default_rng(b + n + d)
+    qi = torch.as_tensor(rng.integers(-127, 128, (b, d), dtype=np.int8))
+    ci = torch.as_tensor(rng.integers(-128, 128, (n, d), dtype=np.int8))
+    before = s8.LAUNCHES["s8_scores"]
+    got_i = int8_cross(qi.cuda(), ci.cuda())
+    assert s8.LAUNCHES["s8_scores"] == before + 1
+    assert got_i.shape == (b, n) and torch.equal(got_i.cpu(),
+                                                 int8_cross(qi, ci))
     v, q = _data(b, n, d, seed=13)
     cpu = ScalarQuantizer(device="cpu").train(v)
     gpu = ScalarQuantizer(device="cuda").train(v)

@@ -71,7 +71,7 @@ def test_quantizer_save_load_cross_package(tmp_path):
     v, _ = _data()
     jp, _ = _carried_quantizer(v)
     jp.save(tmp_path / "j.fpvt")
-    tp = TPQ.load(tmp_path / "j.fpvt")
+    tp = TPQ.load(tmp_path / "j.fpvt", device="cpu")
     np.testing.assert_array_equal(tp.codebooks.numpy(),
                                   np.asarray(jp.codebooks))
     tp.save(tmp_path / "t.fpvt")

@@ -169,7 +169,7 @@ def test_coarse_topk_matches(kind):
 def test_quantizer_save_load_cross_package(tmp_path):
     v, _, jq, _ = _pair("int8")
     jq.save(tmp_path / "j.fpvt")
-    tq = TScalar.load(tmp_path / "j.fpvt")
+    tq = TScalar.load(tmp_path / "j.fpvt", device="cpu")
     np.testing.assert_array_equal(tq.vmin.numpy(), np.asarray(jq.vmin))
     tq.save(tmp_path / "t.fpvt")
     back = JScalar.load(tmp_path / "t.fpvt")

@@ -6,6 +6,7 @@ earlier version of the same sources, in turns on one CUDA card.
     git show <rev>:fastpyvectordb_tpu_torch/csrc/hamming_scores.cu > build/old/hamming_scores.cu
     git show <rev>:fastpyvectordb_tpu_torch/csrc/grouped_cell_scores.cu > build/old/grouped_cell_scores.cu
     git show <rev>:fastpyvectordb_tpu_torch/csrc/grouped_cell_scores_pq.cu > build/old/grouped_cell_scores_pq.cu
+    git show <rev>:fastpyvectordb_tpu_torch/csrc/s8_scores.cu > build/old/s8_scores.cu
     python3 tools/kernel_ab.py build/old
 
 Only the kernels whose earlier source lies in the directory are timed.  The
@@ -15,7 +16,12 @@ B, N, width, metric, stream) and the packed query words
 (``fpv_hamming_*``: q, codes, out, B, N, W, stream); the earlier grouped
 sources are the first-slice kernels (``fpv_grouped_cell_scores[_i8]`` as
 now; ``fpv_grouped_cell_scores_pq`` without the scratch argument).  Each is
-built with the port's own nvcc flags.  Shapes: int4_scores and
+built with the port's own nvcc flags; an earlier ``s8_scores.cu`` has
+today's entry points (``fpv_s8_scores[_tn]``: q copy, codes, out, B, N, D,
+kp, stream) and is built beside the headers it was written for if
+``hopper_scan.cuh`` / ``hopper_common.cuh`` lie in the directory too, else
+beside today's.  Shapes: s8_scores and s8_scores_tn at the int8 two-stage
+path's B=1024 x 1,048,576 x 768 (beside ``torch._int_mm``), int4_scores and
 hamming_mxu_scores at the two-stage paths' B=1024 x 1M rows x 768 dims,
 sq_scores and hamming_scores at a B=1024 x 65,536-row block, on random rows
 made on the card from a fixed seed; grouped_cell_scores (bf16 cells, nprobe
@@ -45,8 +51,10 @@ P, I = ctypes.c_void_p, ctypes.c_int
 def build_old(src: Path, out_dir: Path) -> ctypes.CDLL:
     from fastpyvectordb_tpu_torch.kernels import cuda_build
     so = out_dir / f"lib{src.stem}_old.so"
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
-                    str(src)], check=True, capture_output=True, text=True)
+    # headers beside the old source win; today's fill in the rest
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                    str(cuda_build.CSRC), "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(so))
 
 
@@ -287,6 +295,47 @@ def scans_in_turns(old_dir: Path, out_dir: Path) -> None:
              lambda: hk.hamming_scores(qc, block), 0.0)
 
 
+def s8_in_turns(old_dir: Path, out_dir: Path) -> None:
+    """B8 and B9, old against new at the int8 path's shape on random
+    codes, and the library call beside them."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    if not (old_dir / "s8_scores.cu").exists():
+        return
+    s8.SOURCE.load()
+    old = build_old(old_dir / "s8_scores.cu", out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, n, d = 1024, 1 << 20, 768
+    codes = torch.randint(-128, 128, (n, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    qi = torch.randint(-127, 128, (b, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    qk_ = s8.kernel_query(qi)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def run_old(fn, c):
+        getattr(old, fn).argtypes = s8.SOURCE.signatures[fn]
+
+        def run():
+            out = torch.empty((b, n), dtype=torch.int32, device="cuda")
+            rc = getattr(old, fn)(qk_.data_ptr(), c.data_ptr(),
+                                  out.data_ptr(), b, n, d, qk_.shape[1],
+                                  stream())
+            assert rc == 0, rc
+            return out
+        return run
+
+    in_turns(f"s8_scores B={b} N={n} D={d}", run_old("fpv_s8_scores", codes),
+             lambda: s8.s8_scores(qi, codes), 0.0)
+    print(f"s8_scores library (torch._int_mm(q, codes.T)): "
+          f"{ms(lambda: torch._int_mm(qi, codes.T)):.4f} ms", flush=True)
+    codes_t = codes.T.contiguous()
+    del codes
+    in_turns(f"s8_scores_tn B={b} N={n} D={d}",
+             run_old("fpv_s8_scores_tn", codes_t),
+             lambda: s8.s8_scores_tn(qi, codes_t), 0.0)
+
+
 def main(old_dir: str) -> None:
     import torch
     if not torch.cuda.is_available():
@@ -296,6 +345,8 @@ def main(old_dir: str) -> None:
     grouped_in_turns(Path(old_dir), out_dir)
     torch.cuda.empty_cache()
     scans_in_turns(Path(old_dir), out_dir)
+    torch.cuda.empty_cache()
+    s8_in_turns(Path(old_dir), out_dir)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

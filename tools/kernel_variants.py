@@ -2,11 +2,15 @@
 """Where the time of the hand kernels goes, on one CUDA card.
 
     python3 tools/kernel_variants.py            # the Hopper scan (B4, B5)
+    python3 tools/kernel_variants.py s8         # the same scan under B8, B9
     python3 tools/kernel_variants.py grouped    # B2, B3 and B7
+    python3 tools/kernel_variants.py s8 base no_store      # these variants only
 
 The Hopper scan: time ``int4_scores`` and ``hamming_mxu_scores`` at the
 two-stage paths' B=1024 x 1M x 768 with parts of ``csrc/hopper_scan.cuh``
-switched off.
+switched off.  ``s8``: the same variants of ``s8_scores`` and
+``s8_scores_tn`` at the int8 two-stage path's B=1024 x 1M x 768, beside the
+library call ``torch._int_mm``.
 
 Each variant is a copy of ``csrc/`` under ``build/kernel_variants/<name>``
 with one or more lines replaced (the outputs of such a copy are wrong; only
@@ -19,6 +23,9 @@ child process of its own with a time limit, in two rounds:
   no_store   the epilogue stages the scores but never stores them
   no_mma     the consumers issue no wgmma
   no_tma_no_expand   both
+  no_store_no_tma    neither the query tile nor the scores move
+  no_codes           the producers never copy the corpus tile
+  no_store_no_codes  neither the corpus tile nor the scores move
 
 ``grouped``: ``grouped_cell_scores``, ``grouped_cell_scores_i8`` and
 ``grouped_cell_scores_pq`` at the operands of ``chip_smoke.py``'s IVF and
@@ -56,8 +63,22 @@ TMA = """        if (r == 0) {
 NO_TMA = "        if (r == 0) mbar_arrive(&full[stage]);"
 EXPAND = """          Op::fragment(p, st + Q_BYTES, frow, lane, kk, a[kk & 1], rs0, rs1);"""
 NO_EXPAND = """          a[kk & 1][0] = a[kk & 1][1] = a[kk & 1][2] = a[kk & 1][3] = 0x3F803F80u;"""
-STORE = """            tma_store_2d(&omap, out_s, n0, m0 + 64 * qc);
-            tma_store_2d(&omap, out_s + OUT_BOX, n0 + 32, m0 + 64 * qc);"""
+STORE = """              tma_store_2d(&omap, buf, n0, m0 + 32 * r);
+              tma_store_2d(&omap, buf + OUT_BOX, n0 + 32, m0 + 32 * r);"""
+CODES = """        if (tma_codes) {
+          if (r == 0) {
+            mbar_arrive_tx(&full[stage], Op::STAGE_EXTRA);
+            tma_load_2d(st + Q_BYTES, &cmap, &full[stage],
+                        k * Op::KSTEP_ELEMS, (tile / qtiles) * BC);
+          } else {
+            mbar_arrive(&full[stage]);
+          }
+        } else if (Op::fetch(p, st + Q_BYTES, r, n, k)) {
+          mbar_arrive_cp_async(&full[stage]);
+        } else {
+          mbar_arrive(&full[stage]);
+        }"""
+NO_CODES = "        mbar_arrive(&full[stage]);"
 MMA = """          Op::mma(d, a[kk & 1], db + 2 * kk, (k > 0 || kk > 0) ? 1 : 0);"""
 VARIANTS = {
     "base": [],
@@ -66,14 +87,18 @@ VARIANTS = {
     "no_store": [(STORE, "")],
     "no_mma": [(MMA, "")],
     "no_tma_no_expand": [(TMA, NO_TMA), (EXPAND, NO_EXPAND)],
+    "no_store_no_tma": [(STORE, ""), (TMA, NO_TMA)],
+    "no_codes": [(CODES, NO_CODES)],
+    "no_store_no_codes": [(STORE, ""), (CODES, NO_CODES)],
 }
-SOURCES = ("quant_scores", "hamming_scores")
+SOURCES = {"scan": ("quant_scores", "hamming_scores"), "s8": ("s8_scores",)}
 
 
-def build() -> None:
+def build(which: str, names) -> None:
     from fastpyvectordb_tpu_torch.kernels import cuda_build
     procs = []
-    for name, subs in VARIANTS.items():
+    for name in names:
+        subs = VARIANTS[name]
         d = OUT / name
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(CSRC, d)
@@ -84,7 +109,7 @@ def build() -> None:
                                  "hopper_scan.cuh")
             header = header.replace(old, new)
         (d / "hopper_scan.cuh").write_text(header)
-        for src in SOURCES:
+        for src in SOURCES[which]:
             procs.append(subprocess.Popen(
                 [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
                  str(d / f"lib{src}.so"), str(d / f"{src}.cu")],
@@ -95,27 +120,20 @@ def build() -> None:
             raise SystemExit(out)
 
 
-def time_variant(name: str, rnd: str) -> None:
+def time_variant(name: str, rnd: str, which: str) -> None:
     import torch
     from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
     from fastpyvectordb_tpu_torch.quant.binary import BinaryQuantizer
     from fastpyvectordb_tpu_torch.quant.int4 import Int4Quantizer
-    for src, mod in zip(SOURCES, (qk, hk)):
+    for src, mod in zip(SOURCES[which], (s8,) if which == "s8" else (qk, hk)):
         lib = ctypes.CDLL(str(OUT / name / f"lib{src}.so"))
         for fn, argtypes in mod.SOURCE.signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         mod.SOURCE._lib = lib
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = torch.randn((1_000_000, 768), generator=gen, device="cuda")
-    q = torch.randn((1024, 768), generator=gen, device="cuda")
-    i4 = Int4Quantizer()
-    i4.train(rows[:65_536])
-    packed = i4.encode(rows)
-    bq = BinaryQuantizer(device="cuda").train(rows[:65_536])
-    qc, words = bq.encode(q), bq.encode(rows)
-    del rows
 
     def ms(fn, reps=5):
         fn()
@@ -129,6 +147,26 @@ def time_variant(name: str, rnd: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    if which == "s8":
+        codes = torch.randint(-128, 128, (1 << 20, 768), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        qi = torch.randint(-127, 128, (1024, 768), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        t8 = ms(lambda: s8.s8_scores(qi, codes))
+        lib_ms = ms(lambda: torch._int_mm(qi, codes.T))
+        codes_t = codes.T.contiguous()
+        t9 = ms(lambda: s8.s8_scores_tn(qi, codes_t))
+        print(f"round {rnd} {name:18s} s8_scores {t8:.4f} ms  s8_scores_tn "
+              f"{t9:.4f} ms  torch._int_mm {lib_ms:.4f} ms", flush=True)
+        return
+    rows = torch.randn((1_000_000, 768), generator=gen, device="cuda")
+    q = torch.randn((1024, 768), generator=gen, device="cuda")
+    i4 = Int4Quantizer()
+    i4.train(rows[:65_536])
+    packed = i4.encode(rows)
+    bq = BinaryQuantizer(device="cuda").train(rows[:65_536])
+    qc, words = bq.encode(q), bq.encode(rows)
+    del rows
     t4 = ms(lambda: qk.int4_scores(q, packed, i4.vmin, i4.scale,
                                    metric="cosine"))
     t5 = ms(lambda: hk.hamming_mxu_scores(qc, words))
@@ -238,22 +276,25 @@ def main() -> None:
         return
     if len(sys.argv) == 2 and sys.argv[1] == "grouped":
         main_grouped()
-    elif len(sys.argv) == 3:
-        time_variant(sys.argv[1], sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[2].isdigit():
+        time_variant(*sys.argv[1:])
         return
     else:
-        scan_variants()
+        which = "s8" if sys.argv[1:2] == ["s8"] else "scan"
+        names = [a for a in sys.argv[1:] if a in VARIANTS] or list(VARIANTS)
+        scan_variants(which, names)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
 
 
-def scan_variants() -> None:
-    build()
+def scan_variants(which: str, names) -> None:
+    build(which, names)
     for rnd in range(2):
-        for name in VARIANTS:
+        for name in names:
             try:
-                subprocess.run([sys.executable, __file__, name, str(rnd)],
+                subprocess.run([sys.executable, __file__, name, str(rnd),
+                                which],
                                timeout=120, check=False)
             except subprocess.TimeoutExpired:
                 print(f"round {rnd} {name}: timed out", flush=True)

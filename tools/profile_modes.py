@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a batch's time goes in the int4 and binary two-stage modes, IVF-PQ
-and bf16 IVF, on one CUDA card.
+"""Where a batch's time goes in the int8, int4 and binary two-stage modes,
+IVF-PQ and bf16 IVF, on one CUDA card.
 
     python3 tools/profile_modes.py
 
@@ -78,7 +78,8 @@ def main() -> None:
         db = VectorDB(tmp, device="cuda")
         col = db.create_collection("p", dimensions=cs.DIMS, metric="cosine")
         col.insert_batch(host, [f"v{i}" for i in range(cs.N_ROWS)])
-        for kind, target in (("int4", cs.RECALL_GATE),
+        for kind, target in (("int8", cs.RECALL_GATE),
+                             ("int4", cs.RECALL_GATE),
                              ("binary", cs.TUNE_TARGET)):
             scan = col.enable_quantized_scan(kind, tune=False)
             scan.tune_rerank(qsets[0][:256], target_recall=target)
