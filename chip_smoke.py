@@ -8,8 +8,8 @@ Builds the hand-written CUDA kernels from ``fastpyvectordb_tpu_torch/csrc``
 PyTorch version on the card, then drives the main paths through the public
 API at the size ``bench.py`` uses: a clustered 1M x 768 cosine corpus made
 from a fixed seed, B=1024 query batches, k=10.  Modes: exact f32 (the
-ground truth), filtered exact, exact bf16, int8 two-stage (whose integer
-product is the ``s8_scores`` kernel) and int4 two-stage
+ground truth), filtered exact, exact bf16, int8 two-stage (whose coarse
+scan is the fused ``s8_topc`` kernel, B8's redesign) and int4 two-stage
 ``search_quantized``, the int8 ``pallas`` mode of
 ``ScalarQuantizer.distances``; then the IVF path: ``build_ann("ivf")`` with
 int8 cells (``bench.py``'s ``ivf_grouped_int8_rr4``) and with bf16 cells,
@@ -159,7 +159,8 @@ def phase_build():
         f"in {time.perf_counter() - t0:.2f} s (one nvcc each, concurrently)")
     for src in sources:
         for line in src.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Performance Loss" in line):
                 log(f"[build] {src.name}: {line.strip()}")
 
 
@@ -509,6 +510,215 @@ def s8_main_path(scan, queries):
                              "plain_ms": out["plain_tn"], **common}}
 
 
+def same_sorted(got, want) -> bool:
+    """Sorted top-c values equal bit for bit (NaN where NaN)."""
+    import torch
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan], want[~nan]))
+
+
+def check_topc_rows(vals, rows, scores, label):
+    """Rows valid and distinct per query, each carrying its own score."""
+    import torch
+    n = scores.shape[1]
+    if not ((rows >= 0) & (rows < n)).all():
+        raise AssertionError(f"s8_topc{label}: a row outside 0..{n - 1}")
+    srt = rows.sort(dim=1).values
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        raise AssertionError(f"s8_topc{label}: a row repeats")
+    if not same_sorted(torch.take_along_dim(scores, rows, dim=1), vals):
+        raise AssertionError(f"s8_topc{label}: a row does not carry its "
+                             "value")
+
+
+def topc_case(gen, b, n, d, valid):
+    """Random operands of ``s8_topc``: folded int8 queries and codes, the
+    per-query (qscale, const, qn / qsq) and per-row (rinv / vsq) values,
+    and a mask: all rows, 10% of them, or fewer rows than any c."""
+    import torch
+    rnd = dict(generator=gen, device="cuda")
+    qi = torch.randint(-127, 128, (b, d), dtype=torch.int8, **rnd)
+    codes = torch.randint(-128, 128, (n, d), dtype=torch.int8, **rnd)
+    qscale = torch.rand(b, **rnd) * 1e-3 + 1e-4
+    const = torch.randn(b, **rnd)
+    qstat = torch.rand(b, **rnd) * 10 + 1
+    rstat = torch.rand(n, **rnd) + 0.5
+    mask = {"all": torch.ones(n, dtype=torch.bool, device="cuda"),
+            "10%": torch.rand(n, **rnd) < 0.1,
+            "few": torch.arange(n, device="cuda") % max(n // 3, 1) == 0
+            }[valid]
+    return qi, codes, qscale, const, qstat, rstat, mask
+
+
+def check_topc(args, c, metric, label=""):
+    """``s8_topc`` against ``s8_topc_plain``: sorted values bit for bit,
+    rows valid, distinct and carrying their values."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    from fastpyvectordb_tpu_torch.kernels.distances import MASKED
+    gv, gr = s8.s8_topc(*args, c=c, metric=metric)
+    wv, _ = s8.s8_topc_plain(*args, c=c, metric=metric)
+    torch.cuda.synchronize()
+    b = args[0].shape[0]
+    if gv.shape != (b, c) or gr.shape != (b, c) or not same_sorted(gv, wv):
+        raise AssertionError(f"s8_topc{label}: values differ from plain")
+    qi, codes, qscale, const, qstat, rstat, mask = args
+    scores = s8.folded_epilogue(s8.s8_scores_plain(qi, codes), qscale,
+                                const, qstat, rstat, metric)
+    scores.masked_fill_(~mask[None, :], float(MASKED))
+    check_topc_rows(gv, gr, scores, label)
+    del scores
+
+
+# s8_topc (B, N, D, c): B of one to five query tiles; N under one tile, off
+# the 128-row tile and the main path's 1M; D 64 / 100 / 768; c of 1, 10,
+# 40, 160 and the cap (where N allows)
+TOPC_SHAPES = ((1, 100, 64, (1, 10, 40, 100)),
+               (19, 3001, 100, (1, 10, 40, 160, 1024)),
+               (256, 3001, 768, (10, 40, 160, 1024)),
+               (1100, 4097, 64, (1, 40, 160)),
+               (19, 1 << 20, 768, (1, 40, 160, 1024)),
+               (1100, 1 << 20, 100, (40,)))
+
+
+def phase_topc_kernels():
+    """The fused int8 coarse scan against its plain version at every shape
+    of ``TOPC_SHAPES``, for the three metrics and three masks; then the
+    route past the cap (``s8_scores`` + PyTorch passes) once."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    checks = 0
+    for b, n, d, cs in TOPC_SHAPES:
+        for metric in ("cosine", "l2", "ip"):
+            for valid in ("all", "10%", "few"):
+                args = topc_case(gen, b, n, d, valid)
+                for c in cs:
+                    check_topc(args, c, metric,
+                               f" B={b} N={n} D={d} c={c} {metric} {valid}")
+                    checks += 1
+                del args
+        torch.cuda.empty_cache()
+    log(f"[kernels] s8_topc at {checks} cases {TOPC_SHAPES} x cosine / l2 / "
+        "ip x masks all / 10% / fewer rows than c: sorted values equal to "
+        "plain bit for bit; rows valid, distinct, each with its value")
+    before = dict(s8.LAUNCHES)
+    args = topc_case(gen, 19, 3001, 100, "10%")
+    check_topc(args, s8.TOPC_MAX + 1, "l2", " past the cap")
+    if (s8.LAUNCHES["s8_topc_wide"] != before["s8_topc_wide"] + 1
+            or s8.LAUNCHES["s8_topc"] != before["s8_topc"]):
+        raise AssertionError("s8_topc past its cap: not the scores route")
+    log(f"[kernels] s8_topc at c = {s8.TOPC_MAX + 1} (past the cap): the "
+        "scores route (s8_scores + PyTorch passes), equal to plain")
+    s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
+
+
+def topc_bound(b: int, n: int, d: int, c: int) -> dict:
+    """s8_topc: int8 queries and codes, the (B, 4) query values, rinv, the
+    mask in; (B, c) f32 values and int64 rows out; 2 b n d int8
+    operations."""
+    return bound(b * d + n * d + 16 * b + 4 * n + n + 12 * b * c,
+                 2.0 * b * n * d, "int8")
+
+
+def topc_main_path(scan, queries, c: int):
+    """The fused scan at the int8 two-stage path's own shape, as
+    ``folded_int_topc`` calls it (the B=1024 batch against the whole
+    snapshot, cosine, its validity mask, the path's c): checked against the
+    plain version, then timed beside the route it replaced (``s8_scores``
+    + the folded epilogue's passes + ``masked_fill`` + ``torch.topk``) and
+    the plain version."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    from fastpyvectordb_tpu_torch.quant.scalar import _int8_rs_bias, \
+        fold_queries
+    qz, codes = scan.quantizer, scan.codes
+    vsq, rinv = scan._stats()
+    mask = scan._valid(codes.shape[0])
+    qi, qscale, const, qn = fold_queries(
+        torch.as_tensor(queries, device="cuda"),
+        *_int8_rs_bias(qz.vmin, qz.scale), "cosine")
+    args = (qi, codes, qscale, const, qn, rinv, mask)
+    check_topc(args, c, "cosine", " (int8 snapshot)")
+
+    def replaced():
+        return s8._topc_from_scores(s8.folded_epilogue(
+            s8.s8_scores(qi, codes), qscale, const, qn, rinv, "cosine"),
+            mask, c)
+
+    def fused():
+        return s8.s8_topc(*args, c=c, metric="cosine")
+
+    # in turns: replaced, fused, fused, replaced
+    t = [cuda_ms(fn, reps=5) for fn in (replaced, fused, fused, replaced)]
+    plain_ms = cuda_ms(lambda: s8.s8_topc_plain(*args, c=c,
+                                                metric="cosine"), reps=1)
+    n, d = codes.shape
+    bnd = topc_bound(BATCH, n, d, c)
+    ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    log(f"[kernels] s8_topc main path B={BATCH} N={n} D={d} c={c} cosine: "
+        f"equal to plain; fused {t[1]:.4f} / {t[2]:.4f} ms, replaced route "
+        f"(s8_scores + passes + topk) {t[0]:.4f} / {t[3]:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}")
+    s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
+    return {"s8_topc": {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "replaced_route_ms": old_ms,
+        "library": "none: no single PyTorch call computes a masked top-c of "
+                   "folded int8 scores; the replaced route is timed instead",
+        "redesign_of": "s8_scores (B8)", "c": c,
+        "shape": [BATCH, n, d], **bnd}}
+
+
+def int8_vs_replaced(scan, queries):
+    """The int8 two-stage search through the fused scan on the smoke's
+    B=1024 batch: the device memory one search allocates (a (B, N) f32
+    block would be 4.3 GB), and its results against the route it replaced
+    (``s8_scores`` + the folded epilogue's passes + ``torch.topk``, then the
+    same gather and re-rank): candidates' sorted scores bit for bit, final
+    hits equal up to ties."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    from fastpyvectordb_tpu_torch.quant.scalar import _int8_rs_bias, \
+        fold_queries
+    from fastpyvectordb_tpu_torch.quant.scan import gather_rerank
+    window = dict(s8.LAUNCHES)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d_new, r_new = scan.search(queries, K)
+    grow = torch.cuda.max_memory_allocated() - base
+    if grow >= 1 << 30:
+        raise AssertionError(f"int8 two-stage: one search allocated "
+                             f"{grow / 2**30:.2f} GiB")
+    qz, codes = scan.quantizer, scan.codes
+    _, rinv = scan._stats()
+    mask = scan._valid(codes.shape[0])
+    c = min(K * scan.default_rerank, codes.shape[0])
+    qd = torch.as_tensor(queries, device="cuda")
+    qi, qscale, const, qn = fold_queries(
+        qd, *_int8_rs_bias(qz.vmin, qz.scale), "cosine")
+    ov, orow = s8._topc_from_scores(s8.folded_epilogue(
+        s8.s8_scores(qi, codes), qscale, const, qn, rinv, "cosine"), mask, c)
+    nv, _ = s8.s8_topc(qi, codes, qscale, const, qn, rinv, mask, c=c,
+                       metric="cosine")
+    if not same_sorted(nv, ov):
+        raise AssertionError("int8 candidates differ from the replaced route")
+    d_old, r_old = gather_rerank(qd, ov, orow, scan._store.vectors,
+                                 scan.metric, K, scan.compute_dtype)
+    if not same_up_to_ties(d_new, r_new, d_old.cpu().numpy(),
+                           r_old.cpu().numpy()):
+        raise AssertionError("int8 two-stage hits differ from the replaced "
+                             "route beyond ties")
+    s8.LAUNCHES.update(window)
+    log(f"[main] int8 two-stage: one B={BATCH} search over "
+        f"{codes.shape[0]} rows allocated {grow / 2**20:.1f} MiB of device "
+        f"memory; c={c} candidates equal to the replaced route's bit for "
+        "bit, hits equal up to ties")
+
+
 def phase_main_path(tmpdir: Path):
     import numpy as np
     import torch
@@ -538,6 +748,7 @@ def phase_main_path(tmpdir: Path):
         torch.as_tensor(queries, device="cuda"), block))
     del block
     phase_s8_kernels()
+    phase_topc_kernels()
 
     # -- the counted main path ------------------------------------------
     qk.LAUNCHES.update({key: 0 for key in qk.LAUNCHES})
@@ -618,8 +829,13 @@ def phase_main_path(tmpdir: Path):
             f"QPS {qps:.1f}")
     if qk.LAUNCHES["int4_scores"] == 0:
         raise AssertionError("int4 two-stage ran without int4_scores")
-    if s8.LAUNCHES["s8_scores"] == 0:
-        raise AssertionError("int8 two-stage ran without s8_scores")
+    # the int8 two-stage scan goes through the fused kernel alone: no
+    # (B, N) block, no raw s8 scan
+    if s8.LAUNCHES["s8_topc"] == 0 or s8.LAUNCHES["s8_scores"] != 0:
+        raise AssertionError(f"int8 two-stage launches {s8.LAUNCHES}: "
+                             "expected s8_topc only")
+    log(f"[main] int8 two-stage kernel launches: {dict(s8.LAUNCHES)}")
+    int8_vs_replaced(scans["int8"], queries)
 
     scan8 = scans["int8"]
     qd = torch.as_tensor(queries, device="cuda")
@@ -629,6 +845,8 @@ def phase_main_path(tmpdir: Path):
     torch.cuda.synchronize()
     if qk.LAUNCHES["sq_scores"] == 0:
         raise AssertionError("mode='pallas' ran without sq_scores")
+    if s8.LAUNCHES["s8_scores"] == 0:
+        raise AssertionError("mode='int8mm' ran without s8_scores")
     gap = (d_kern - d_mm).abs().max().item()
     if gap > 2e-2 * max(d_mm.abs().max().item(), 1.0):
         raise AssertionError(f"pallas vs int8mm modes differ by {gap:.3g}")
@@ -638,6 +856,8 @@ def phase_main_path(tmpdir: Path):
     log(f"[main] kernel launches on the main path: {launches}")
     kernels["int4_scores"] = int4_main_path(scans["int4"], queries)
     kernels.update(s8_main_path(scan8, queries))
+    kernels.update(topc_main_path(scan8, queries,
+                                  K * scan8.default_rerank))
 
     ivf_kernels, ivf_launches = phase_ivf(col, bf, queries, tune_queries,
                                           timing_batches, truth, bf_truth,
@@ -1307,8 +1527,9 @@ def phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
     if scores.shape != (BATCH, K) or not np.isfinite(scores).all() \
             or not (np.diff(scores, axis=1) >= 0).all():
         raise AssertionError("big int8: scores are not K sorted finite hits")
-    if launches.get("s8_scores", 0) == 0:
-        raise AssertionError(f"big int8 ran without s8_scores: {launches}")
+    if launches.get("s8_topc", 0) == 0 or launches.get("s8_scores", 0):
+        raise AssertionError(f"big int8: launches {launches}, expected "
+                             "s8_topc only")
     if rec < RECALL_GATE:
         raise AssertionError(f"big int8: recall@10 {rec:.4f} < {RECALL_GATE}")
     # the final scores are exact: hold a few against the f64 host scan
@@ -1420,7 +1641,9 @@ def main() -> int:
         "hamming_scores": ("hamming_scores.cu", f"{pq}:292"),
         "grouped_cell_scores_pq": ("grouped_cell_scores_pq.cu", f"{pi}:179"),
         "s8_scores": ("s8_scores.cu", f"{lab}:50"),
-        "s8_scores_tn": ("s8_scores.cu", f"{lab}:72")}
+        "s8_scores_tn": ("s8_scores.cu", f"{lab}:72"),
+        # B8's redesign: the same scan with a running top-c epilogue
+        "s8_topc": ("s8_scores.cu", f"{lab}:50")}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"fastpyvectordb_tpu_torch/csrc/{src}",

@@ -6,8 +6,9 @@ device codes (port of ``fastpyvectordb_tpu/core/bigcollection.py``).
   * a compressed snapshot lives on the DEVICE — 1-bit packed codes (32x,
     row-major (cap, W) int32 words, as the Hamming kernels read them), int4
     packed nibbles (8x, quant/int4.py) or int8 codes (4x) — so the coarse
-    scan over ALL rows runs on the card: the ``s8_scores`` kernel under the
-    folded int8 product, ``int4_scores``, or ``hamming_mxu_scores``;
+    scan over ALL rows runs on the card: the fused ``s8_topc`` kernel
+    (folded int8 product, scores and top-C in one pass), ``int4_scores``,
+    or ``hamming_mxu_scores``;
   * search = device coarse scan + top-C -> host gather of C candidate rows
     -> exact f32 re-rank on host BLAS -> top-k.
 
@@ -15,9 +16,12 @@ Appends encode incrementally into pre-allocated power-of-two device code
 buffers, written in place under the lock (no rebuild); deletes are
 validity-mask tombstones; metadata filters compile to masks fused into the
 coarse scan, exactly like the core Collection.  The (B, rows) coarse score
-block is bounded: the code buffer is scanned in row chunks of at most
-``_score_budget`` bytes of scores, each with its own top-C, and the chunks'
-candidates are merged (the merged top-C is the same function).
+block of the int4 and binary codecs is bounded: the code buffer is scanned
+in row chunks of at most ``_score_budget`` bytes of scores, each with its
+own top-C, and the chunks' candidates are merged (the merged top-C is the
+same function).  The fused int8 scan writes no block and scans the whole
+buffer at once (up to its ``TOPC_MAX`` candidates; past it, as the
+others).
 
 The files (``bigcollection.fpvt`` + ``vectors.npy``) are the JAX package's:
 a collection saved by either package loads in the other.  Codes are not
@@ -41,6 +45,7 @@ import torch
 
 from ..kernels.distances import MASKED, host_exact_scores, smallest_k
 from ..kernels.hamming_kernels import hamming_mxu_scores
+from ..kernels.s8_kernels import TOPC_MAX
 from ..persist.format import load_container, save_container
 from ..quant.binary import BinaryQuantizer
 from ..quant.int4 import Int4Quantizer
@@ -375,7 +380,8 @@ class BigCollection:
         """Coarse top-c over the whole code buffer -> host (vals, rows),
         (B, c) each.  Scanned in row chunks whose (B, rows) f32 score block
         stays inside ``_score_budget``; one chunk covers the buffer until
-        B x capacity outgrows it."""
+        B x capacity outgrows it, and always for the fused int8 scan (no
+        block) while c <= ``TOPC_MAX``."""
         qd = torch.as_tensor(q).to(self.device)
         qz = self._qz
         if self.codec == "binary":
@@ -401,6 +407,8 @@ class BigCollection:
         step = MIN_CAP
         while step * 2 * q.shape[0] * 4 <= self._score_budget:
             step *= 2
+        if self.codec == "int8" and c <= TOPC_MAX:
+            step = self._code_cap
         vals, rows = [], []
         for s in range(0, self._code_cap, step):
             e = min(s + step, self._code_cap)

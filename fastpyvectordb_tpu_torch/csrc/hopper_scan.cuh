@@ -36,7 +36,9 @@
 //     tile, and stores that with TMA while the next round fills the other
 //     half; the tile's last stores drain while the next tile's products
 //     run.  Where N is not a multiple of 4 (TMA needs
-//     16-byte rows) they are stored from registers instead.
+//     16-byte rows) they are stored from registers instead.  An Op with
+//     TOPC (topc_epilogue.cuh) keeps a running top-c of each query's
+//     scores in place of the epilogue's store, in the staging area's room.
 //
 // setmaxnreg moves registers from the producer to the consumers.  The
 // query operand is a (B, Kp) copy made by the wrapper (bf16 or int8, Kp a
@@ -50,6 +52,7 @@
 #pragma once
 
 #include "hopper_common.cuh"
+#include "topc_epilogue.cuh"
 
 namespace fpv {
 
@@ -159,6 +162,8 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
     uint32_t a[2][4];        // fragment buffers: slices alternate
     int stage = 0;
     uint32_t phase = 0;
+    if constexpr (IsTopc<Op>::value)
+      topc_begin<Op>(p, smem, blockIdx.x % qtiles, tid);
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       float rs0 = 0.0f, rs1 = 0.0f;   // Op's row sums of rows frow, frow + 8
       int prev = 0;
@@ -188,6 +193,11 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<0>();
       fence_regs(d);
       if (lane == 0) mbar_arrive(&empty[prev]);
+      if constexpr (IsTopc<Op>::value) {
+        // the top-c epilogue keeps the tile's best scores instead
+        topc_tile<Op>(p, d, smem, tile, qtiles, tid);
+        continue;
+      }
 
       // a quad of lanes shares its rows: add up their sums
       rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
@@ -251,6 +261,7 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
     }
+    if constexpr (IsTopc<Op>::value) topc_end<Op>(p, smem, qtiles, tid);
     if (tid % 128 == 0) bulk_wait_all();
   }
 }
@@ -279,8 +290,9 @@ int launch(const void* q, CUtensorMapDataType qtype, int elem_bytes, int kp,
        !encode_2d(&cmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, corpus, p.N, ccols,
                   BC, ROW_BYTES)))
     return int(cudaErrorInvalidValue);
-  // the output goes out by TMA where its rows are whole 16-byte units
-  const int tma_out = (p.N % 4) == 0 &&
+  // the output goes out by TMA where its rows are whole 16-byte units (a
+  // top-c scan stores none)
+  const int tma_out = !IsTopc<Op>::value && (p.N % 4) == 0 &&
                       (reinterpret_cast<uintptr_t>(p.out) % 16) == 0;
   if (tma_out && !encode_2d(&omap, Op::OUT_TYPE, 4, p.out, p.B, p.N, 32, 32))
     return int(cudaErrorInvalidValue);
@@ -295,7 +307,12 @@ int launch(const void* q, CUtensorMapDataType qtype, int elem_bytes, int kp,
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int grid = int(tiles < sms ? tiles : sms);   // persistent blocks
+  int grid = int(tiles < sms ? tiles : sms);   // persistent blocks
+  if constexpr (IsTopc<Op>::value) {
+    // G blocks a query tile, each keeping to it (topc_epilogue.cuh)
+    static_assert(TOPC_SMEM <= 2 * STAGING, "top-c state fits the staging");
+    grid = qtiles * p.G;
+  }
   scan_kernel<Op><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
       qmap, omap, cmap, p, int(tiles), qtiles, kp / kstep, tma_out,
       corpus != nullptr);

@@ -4,6 +4,10 @@
 // Replaces the TPU Pallas kernels in benchmarks/int8_mxu_lab.py:
 //   fpv_s8_scores    <- pallas_s8    (_s8_kernel):    codes row-major (N, D)
 //   fpv_s8_scores_tn <- pallas_s8_tn (_s8_tn_kernel): codes transposed (D, N)
+// and, as pallas_s8's redesign for the int8 two-stage scan, fpv_s8_topc
+// (+ fpv_s8_topc_merge): the same scan with the folded int8 scores, the
+// mask and a running top-c in its epilogue (S8TopcOp below), so that the
+// (B, N) block is never written.
 // One templated kernel (hopper_scan.cuh's scan_kernel with S8Op); the two
 // entries differ only in how the producer brings a corpus tile into shared
 // memory.  The Pallas grid's "N a multiple of the tile" rule is not carried
@@ -200,6 +204,97 @@ struct S8Op {
   }
 };
 
+// The fused int8 coarse scan (fpv_s8_topc): S8Op's mainloop on row-major
+// codes, with the folded dequantisation, the metric and the mask applied to
+// the accumulators in registers and a running top-c kept per query
+// (topc_epilogue.cuh) instead of the (B, N) store.  Each operation rounds
+// where PyTorch's passes round in s8_kernels.py (folded_epilogue): one
+// IEEE operation each by the _rn intrinsics, never contracted into an FMA
+// (the division by qn by fpv::div_rn, which rounds as IEEE division does),
+// so the scores equal the plain version's bit for bit.
+//   cosine: 1 - ((x qscale + const) / qn) rinv[n]
+//   l2:     max(qsq + vsq[n] - 2 (x qscale + const), 0)
+//   dot:    -(x qscale + const)
+// What bounds it: at the int8 path's B=1024 x N=1M x D=768 the products,
+// 1.65 T int8 operations, 0.83 ms at 1,979 TOP/s; its bytes are the codes
+// (0.81 GB), the row values and mask and the (B, c) result, 0.25 ms at 3.35
+// TB/s.  What stands in the way is the epilogue, which runs while the
+// tensor cores wait: some 20 scalar operations a score (the scores of a
+// tile are 256 x 128), then the rows that enter a list and the lists'
+// compactions (tools/kernel_variants.py topc measures each part).
+enum { COSINE = 0, L2 = 1, DOT = 2 };
+
+template <int METRIC>
+struct S8TopcOp : S8Op<false> {
+  static constexpr bool TOPC = true;
+
+  struct Params : S8Op<false>::Params, fpv::TopcParams {
+    // (B, 4): the folded query's int8 scale, q . bias, qn (cosine) or qsq
+    // (l2), and RN(1 / qn) (cosine)
+    const float4* qparams;
+    const float* rstat;   // (N,) rinv (cosine), vsq (l2); unused for dot
+  };
+
+  static __device__ __forceinline__ float4 query_params(const Params& p,
+                                                        int q) {
+    return p.qparams[q];
+  }
+
+  static __device__ __forceinline__ float row_param(const Params& p, int n) {
+    return METRIC == DOT ? 0.0f : p.rstat[n];
+  }
+
+  static __device__ __forceinline__ float topc_score(int dot, float4 v,
+                                                     float rv) {
+    const float x = __fadd_rn(__fmul_rn(__int2float_rn(dot), v.x), v.y);
+    if (METRIC == COSINE)
+      return __fadd_rn(1.0f, -__fmul_rn(fpv::div_rn(x, v.z, v.w), rv));
+    if (METRIC == L2) {
+      const float t = __fsub_rn(__fadd_rn(v.z, rv), __fmul_rn(2.0f, x));
+      return t < 0.0f ? 0.0f : t;   // clamp(min=0): NaN stays NaN
+    }
+    return -x;
+  }
+};
+
+// blocks a query tile of the top-c scan: enough to fill the card, no more
+// than the corpus tiles
+int topc_blocks(int B, int N) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int qtiles = (B + fpv::BQ - 1) / fpv::BQ;
+  const int ctiles = (N + fpv::BC - 1) / fpv::BC;
+  const int g = sms / qtiles;
+  return g < 1 ? 1 : (g < ctiles ? g : ctiles);
+}
+
+template <int METRIC>
+int launch_topc(const void* q, const void* codes, const void* qparams,
+                const float* rstat, const uint8_t* mask, void* lists, int B,
+                int N, int D, int kp, int c, void* stream) {
+  using Op = S8TopcOp<METRIC>;
+  if (D <= 0 || kp % Op::KSTEP_ELEMS != 0 || kp < D ||
+      kp - Op::KSTEP_ELEMS >= D || c <= 0 || c > fpv::TOPC_MAX || c > N)
+    return int(cudaErrorInvalidValue);
+  typename Op::Params p;
+  p.B = B;
+  p.N = N;
+  p.out = nullptr;
+  p.codes = static_cast<const uint8_t*>(codes);
+  p.D = D;
+  p.vec = (D % 16) == 0 && (reinterpret_cast<uintptr_t>(codes) % 16) == 0;
+  p.lists = static_cast<uint2*>(lists);
+  p.mask = mask;
+  p.c = c;
+  p.L = c + fpv::TOPC_SLACK;
+  p.G = topc_blocks(B, N);
+  p.qparams = static_cast<const float4*>(qparams);
+  p.rstat = rstat;
+  return fpv::launch<Op>(q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kp, p, stream,
+                         p.vec ? codes : nullptr, D);
+}
+
 template <bool TN>
 int launch(const void* q, const void* codes, void* out, int B, int N, int D,
            int kp, void* stream) {
@@ -237,5 +332,53 @@ int fpv_s8_scores_tn(const void* q, const void* codes_t, void* out, int B,
                      int N, int D, int kp, void* stream) {
   return launch<true>(q, codes_t, out, B, N, D, kp, stream);
 }
+
+// The fused int8 coarse scan: q (B, kp) folded int8 queries (zero past D),
+// codes (N, D) int8, qparams (B, 4) f32 (qscale, q . bias, qn or qsq,
+// RN(1 / qn)), per row rstat (N,) f32 and mask (N,) bool; metric 0 cosine,
+// 1 l2, 2 dot.  Leaves each block's c best (key, row) per query in lists
+// (B, G, c + 256) uint2 (G = fpv_s8_topc_blocks(B, N)), for
+// fpv_s8_topc_merge.  1 <= c <= min(N, 1024).  Returns a cudaError_t as
+// int.
+int fpv_s8_topc(const void* q, const void* codes, const void* qparams,
+                const void* rstat, const void* mask, void* lists, int B,
+                int N, int D, int kp, int c, int metric, void* stream) {
+  if (reinterpret_cast<uintptr_t>(qparams) % 16 != 0)
+    return int(cudaErrorInvalidValue);
+  const auto* rs = static_cast<const float*>(rstat);
+  const auto* m = static_cast<const uint8_t*>(mask);
+  switch (metric) {
+    case COSINE:
+      return launch_topc<COSINE>(q, codes, qparams, rs, m, lists, B, N, D,
+                                 kp, c, stream);
+    case L2:
+      return launch_topc<L2>(q, codes, qparams, rs, m, lists, B, N, D, kp,
+                             c, stream);
+    case DOT:
+      return launch_topc<DOT>(q, codes, qparams, rs, m, lists, B, N, D, kp,
+                              c, stream);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// G of fpv_s8_topc's lists for a (B, N) scan.
+int fpv_s8_topc_blocks(int B, int N) { return topc_blocks(B, N); }
+
+// lists (B, G, L) of fpv_s8_topc -> vals (B, c) f32 ascending, rows (B, c)
+// int64.  Returns a cudaError_t as int.
+int fpv_s8_topc_merge(const void* lists, void* vals, void* rows, int B,
+                      int G, int L, int c, void* stream) {
+  return fpv::topc_merge(lists, vals, rows, B, G, L, c, stream);
+}
+
+#ifdef FPV_TOPC_STATS
+// read and reset the counts of a -DFPV_TOPC_STATS build
+int fpv_s8_topc_stats(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, fpv::topc_stats, sizeof(fpv::topc_stats));
+  const unsigned long long zero[2] = {0ull, 0ull};
+  cudaMemcpyToSymbol(fpv::topc_stats, zero, sizeof(zero));
+  return int(cudaGetLastError());
+}
+#endif
 
 }  // extern "C"

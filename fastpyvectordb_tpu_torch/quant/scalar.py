@@ -26,7 +26,7 @@ import torch
 
 from ..core.types import DistanceMetric
 from ..kernels import quant_kernels
-from ..kernels.s8_kernels import s8_scores
+from ..kernels.s8_kernels import folded_epilogue, s8_scores, s8_topc
 from ..kernels.topk import masked_top_k
 from ..persist.format import load_container, save_container
 from ..utils import resolve_device
@@ -103,38 +103,71 @@ def int8_cross(qi: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return s8_scores(qi, codes)
 
 
-def folded_int_scores(queries, codes, vmin, rs, bias, vsq, rinv, metric,
-                      cross_fn=int8_cross) -> torch.Tensor:
-    """Scores from an integer product against raw codes, with the
+def fold_queries(queries, rs, bias, metric):
+    """The query side of a product against raw codes with the
     per-dimension dequantisation folded into the query:
         q . dequant(c) = (q * rs) . c + q . bias
     (int8: rs = scale/255, bias = 128*rs + vmin; int4: rs = scale/15,
-    bias = vmin).  The scaled query is quantised to int8 per row.  The
-    (B, N) block is updated in place (the JAX version's temporaries would
-    hold four 4 GB blocks at B=1024 x 1M)."""
+    bias = vmin).  The scaled query is quantised to int8 per row.  Returns
+    (qi (B, D) int8, qscale (B,), const (B,) = q . bias, qstat (B,): qn for
+    cosine, qsq for l2, None for dot)."""
     q = queries.float()
     qs = q * rs[None, :]
     const = q @ bias
     qmax = qs.abs().max(dim=1, keepdim=True).values
     qscale = torch.clamp(qmax, min=1e-30) / 127.0
     qi = torch.clamp(torch.round(qs / qscale), -127, 127).to(torch.int8)
-    cross = cross_fn(qi, codes).float().mul_(qscale).add_(const[:, None])
+    qstat = None
     if metric == DistanceMetric.COSINE:
-        qn = torch.clamp(torch.linalg.norm(q, dim=1, keepdim=True), min=1e-30)
-        return cross.div_(qn).mul_(rinv[None, :]).neg_().add_(1.0)
-    if metric == DistanceMetric.L2:
-        qsq = (q * q).sum(dim=1)
-        d2 = qsq[:, None] + vsq[None, :]
-        return d2.sub_(cross.mul_(2.0)).clamp_(min=0.0)
-    return cross.neg_()
+        qstat = torch.clamp(torch.linalg.norm(q, dim=1), min=1e-30)
+    elif metric == DistanceMetric.L2:
+        qstat = (q * q).sum(dim=1)
+    return qi, qscale[:, 0], const, qstat
+
+
+def folded_int_scores(queries, codes, vmin, rs, bias, vsq, rinv, metric,
+                      cross_fn=int8_cross) -> torch.Tensor:
+    """(B, N) scores from an integer product against raw codes
+    (``fold_queries``), the block updated in place by ``folded_epilogue``
+    (the JAX version's temporaries would hold four 4 GB blocks at B=1024 x
+    1M)."""
+    metric = DistanceMetric.parse(metric)
+    qi, qscale, const, qstat = fold_queries(queries, rs, bias, metric)
+    rstat = rinv if metric == DistanceMetric.COSINE else vsq
+    return folded_epilogue(cross_fn(qi, codes), qscale, const, qstat, rstat,
+                           metric)
+
+
+def folded_int_topc(queries, codes, vmin, rs, bias, vsq, rinv, mask, *,
+                    c: int, metric):
+    """The c smallest of ``folded_int_scores``' scores per query, rows
+    where ``mask`` is False scored ``MASKED``: (vals (B, c), rows (B, c)).
+    The fused ``s8_topc`` scan on CUDA writes no (B, N) block; on the CPU
+    its plain version computes the block and selects."""
+    metric = DistanceMetric.parse(metric)
+    qi, qscale, const, qstat = fold_queries(queries, rs, bias, metric)
+    rstat = rinv if metric == DistanceMetric.COSINE else vsq
+    return s8_topc(qi, codes, qscale, const, qstat, rstat, mask, c=c,
+                   metric=metric)
+
+
+def _int8_rs_bias(vmin, scale):
+    rs = (scale / 255.0).float()
+    return rs, 128.0 * rs + vmin
 
 
 def _distances_int8_matmul(queries, codes, vmin, scale, vsq, rinv, *,
                            metric) -> torch.Tensor:
     """Int8-native scan: one int8 x int8 product against the raw codes."""
-    rs = (scale / 255.0).float()
-    return folded_int_scores(queries, codes, vmin, rs, 128.0 * rs + vmin,
+    return folded_int_scores(queries, codes, vmin, *_int8_rs_bias(vmin, scale),
                              vsq, rinv, metric)
+
+
+def int8_topc(queries, codes, vmin, scale, vsq, rinv, mask, *, c: int,
+              metric):
+    """Int8-native scan + masked top-c in one pass (``folded_int_topc``)."""
+    return folded_int_topc(queries, codes, vmin, *_int8_rs_bias(vmin, scale),
+                           vsq, rinv, mask, c=c, metric=metric)
 
 
 def row_stats(codes, vmin, scale, dequant) -> Tuple[torch.Tensor,

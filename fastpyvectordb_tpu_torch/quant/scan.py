@@ -1,15 +1,17 @@
 """Two-stage quantized scan: compressed first pass -> exact re-rank (port of
 ``fastpyvectordb_tpu/quant/scan.py``: the int8, int4, binary and pq kinds).
 
-  stage 1: quantized distances over all rows (int8: folded s8 x s8 product,
-           the ``s8_scores`` kernel;
+  stage 1: quantized distances over all rows + masked top-c candidates
+           (int8: the fused ``s8_topc`` kernel, folded s8 x s8 product,
+           scores, mask and a running top-c in one pass, no (B, N) block;
            int4: the ``int4_scores`` kernel; binary: the packed-Hamming
-           ``hamming_mxu_scores`` kernel; pq: the ADC table scan) + masked
-           top-c candidates;
+           ``hamming_mxu_scores`` kernel; pq: the ADC table scan; each of
+           these writes its block, then ``torch.topk``);
   stage 2: gather the candidates' rows and apply the exact metric, then
            the final top-k.
 
-Candidate selection is exact ``torch.topk`` in f32: the TPU's approximate
+Candidate selection is exact in f32 (``torch.topk``, or the int8 scan's
+fused top-c, which gives the same sorted scores): the TPU's approximate
 top-k (``lax.approx_max_k``) has no CUDA counterpart, and the JAX package
 itself selects exactly off the TPU.  int8, int4 and binary run the JAX
 package's fused single-dispatch pipelines on every device, re-ranking in
@@ -28,13 +30,14 @@ from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, smallest_k
 from ..kernels.hamming_kernels import hamming_mxu_scores, hamming_scores
 from ..kernels.quant_kernels import int4_scores
+from ..kernels.s8_kernels import TOPC_MAX
 from ..kernels.topk import masked_top_k
 from ..utils import next_pow2
 from .binary import BinaryQuantizer, _encode as _binary_encode
 from .binary import from_uint32, to_uint32
 from .int4 import Int4Quantizer, _pad_queries
 from .product import ProductQuantizer, _encode as _pq_encode
-from .scalar import ScalarQuantizer, _distances_int8_matmul, as_tensor
+from .scalar import ScalarQuantizer, as_tensor, int8_topc
 
 _KIND_ALIASES = {"int8": "int8", "sq": "int8", "scalar": "int8",
                  "int4": "int4", "sq4": "int4",
@@ -63,10 +66,10 @@ def _masked_candidates(s, mask, *, c: int):
 
 def _int8_coarse_topk(q, codes, vmin, scale, vsq, rinv, mask, *,
                       metric: DistanceMetric, k: int):
-    """int8 scan + masked top-k (the rerank<=1 path)."""
-    s = _distances_int8_matmul(q, codes, vmin, scale, vsq, rinv,
-                               metric=metric)
-    return _masked_candidates(s, mask, c=k)
+    """int8 scan + masked top-k (the rerank<=1 path): one fused
+    ``s8_topc`` pass."""
+    return int8_topc(q, codes, vmin, scale, vsq, rinv, mask, c=k,
+                     metric=metric)
 
 
 def _int4_coarse_topk(q, codes, vmin, scale, mask, *,
@@ -136,11 +139,11 @@ def gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype):
 def _int8_two_stage(q, codes, vmin, scale, vsq, rinv, vectors, mask, *,
                     metric: DistanceMetric, k: int, c: int,
                     rerank_dtype: str):
-    """The whole int8 two-stage search: folded s8 product -> top-c
-    candidates -> gather -> exact re-rank -> final top-k."""
-    s = _distances_int8_matmul(q, codes, vmin, scale, vsq, rinv,
-                               metric=metric)
-    cvals, crows = _masked_candidates(s, mask, c=c)
+    """The whole int8 two-stage search: the fused folded s8 scan with
+    its top-c candidates (``s8_topc``) -> gather -> exact re-rank -> final
+    top-k."""
+    cvals, crows = int8_topc(q, codes, vmin, scale, vsq, rinv, mask, c=c,
+                             metric=metric)
     return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
 
 
@@ -193,12 +196,13 @@ class QuantizedScan:
     """Compressed snapshot of a collection's live rows + 2-stage search."""
 
     # per-dispatch budget for the coarse (B, N) score block of the
-    # kernel-scored kinds (int8, int4, binary), which their kernels write
-    # to device memory.  4 GB holds the B=1024 x 1M-row block in one dispatch
-    # (the main path); larger corpora split the batch so peak memory stays
-    # bounded.  Kept at the JAX value rather than derived from free memory:
-    # a bigger block buys no speed, since the kernels' time is linear in
-    # B*N either way.
+    # kernel-scored kinds (int4, binary; int8 above the fused scan's
+    # TOPC_MAX), which their kernels write to device memory.  4 GB holds the
+    # B=1024 x 1M-row block in one dispatch; larger corpora split the batch
+    # so peak memory stays bounded.  Kept at the JAX value rather than
+    # derived from free memory: a bigger block buys no speed, since the
+    # kernels' time is linear in B*N either way.  The fused int8 scan
+    # writes no block and takes any batch whole.
     _score_hbm_budget = 4 << 30
 
     def __init__(self, kind: str, quantizer, codes: torch.Tensor, store,
@@ -318,15 +322,16 @@ class QuantizedScan:
             q = q[None, :]
         b = q.shape[0]
         n = int(self.codes.shape[0])
-        # cap the kernel-written (B, N) 4-byte score block at the budget:
-        # split the batch into pow2 sub-batches (the JAX package leaves
-        # int8 whole because XLA streams its scores; here the s8 scan
-        # writes the block like the other kernels)
+        c = min(max(k * max(rerank, 1), k), n)
+        # cap a kernel-written (B, N) 4-byte score block at the budget:
+        # split the batch into pow2 sub-batches (the fused int8 scan, like
+        # XLA's fusion in the JAX package, writes none)
         cap = max(8, int(self._score_hbm_budget // (max(n, 1) * 4)))
         sub = 8
         while sub * 2 <= cap:
             sub *= 2
-        if self.kind in _FUSED and b > sub:
+        writes_block = self.kind != "int8" or c > TOPC_MAX
+        if self.kind in _FUSED and writes_block and b > sub:
             parts = [self.search(q[s:s + sub], k, rerank, mask)
                      for s in range(0, b, sub)]
             return (np.concatenate([p[0] for p in parts]),
@@ -340,7 +345,6 @@ class QuantizedScan:
             m = torch.as_tensor(mk, device=device) & valid
         else:
             m = valid
-        c = min(max(k * max(rerank, 1), k), n)
         kk = min(k, c)
         qd = torch.as_tensor(q).to(device)
         qz = self.quantizer

@@ -431,9 +431,10 @@ def test_port_never_imports_jax(tmp_path):
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 def test_quantized_batch_splits_at_the_score_budget(kind, monkeypatch):
-    # every kernel-scored kind writes a (B, N) 4-byte block: a batch whose
-    # block would pass the budget is searched in power-of-two sub-batches,
-    # with the same hits
+    # a kind whose kernel writes a (B, N) 4-byte block (int4; int8 past the
+    # fused scan's TOPC_MAX candidates) searches a batch whose block would
+    # pass the budget in power-of-two sub-batches, with the same hits; the
+    # fused int8 scan writes no block and takes the batch whole
     from fastpyvectordb_tpu_torch.quant import scan as tscan
     (_, _), (_, tc), _, q = _pair("cosine")
     tc.enable_quantized_scan(kind, tune=False)
@@ -448,4 +449,9 @@ def test_quantized_batch_splits_at_the_score_budget(kind, monkeypatch):
                         lambda *a, **kw: calls.append(a[0].shape[0])
                         or orig(*a, **kw))
     _same(whole, tc.search_quantized_arrays(q, k=10), rtol=1e-6)
+    if kind == "int8":
+        assert calls == [24]
+        calls.clear()
+        monkeypatch.setattr(tscan, "TOPC_MAX", 8)   # c = 40 is past it
+        _same(whole, tc.search_quantized_arrays(q, k=10), rtol=1e-6)
     assert calls == [8, 8, 8]

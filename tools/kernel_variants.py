@@ -4,6 +4,7 @@
     python3 tools/kernel_variants.py            # the Hopper scan (B4, B5)
     python3 tools/kernel_variants.py s8         # the same scan under B8, B9
     python3 tools/kernel_variants.py grouped    # B2, B3 and B7
+    python3 tools/kernel_variants.py topc       # the fused int8 scan s8_topc
     python3 tools/kernel_variants.py s8 base no_store      # these variants only
 
 The Hopper scan: time ``int4_scores`` and ``hamming_mxu_scores`` at the
@@ -37,6 +38,19 @@ lookups, no table staging, no products, no stores).  One child process builds th
 operands once and times the variants in two rounds; if it runs into its
 time limit (a mis-sized barrier hangs the card), the variant it was at is
 dropped and a new child goes on with the rest.
+
+``topc``: ``s8_topc`` (B8's redesign: the s8 scan with a running top-c
+epilogue) at the int8 two-stage path's B=1024 x 1,048,576 x 768, cosine, c
+= 40, on random codes, beside the route it replaced (``s8_scores`` + the
+folded epilogue's PyTorch passes + ``masked_fill`` + ``torch.topk``), each
+variant ``csrc/s8_scores.cu`` built with the switches of ``TOPC_VARIANTS``
+(outputs wrong, times only): no epilogue at all, no epilogue arithmetic
+(the score is the integer product), no threshold compare (no row enters a
+list), both of these, no compactions; ``merge``, the merge kernel alone on
+the lists the full kernel left; and ``stats``, a build that counts the
+rows that enter the lists and the compactions (printed a block and
+query).  Each variant is timed beside the full kernel in the same child
+process.
 
 Prints one line a variant and round, then the card's nvidia-smi name and
 power limit.
@@ -270,12 +284,147 @@ def main_grouped() -> None:
         todo = [it for it in todo if it not in done and it not in hung]
 
 
+TOPC_VARIANTS = {
+    "base": [],
+    "no_epilogue": ["-DFPV_TOPC_NO_EPILOGUE"],
+    "no_math": ["-DFPV_TOPC_NO_MATH"],
+    "no_filter": ["-DFPV_TOPC_NO_FILTER"],
+    "no_filter_math": ["-DFPV_TOPC_NO_FILTER", "-DFPV_TOPC_NO_MATH"],
+    "no_compact": ["-DFPV_TOPC_NO_COMPACT"],
+    "merge": [],
+    "stats": ["-DFPV_TOPC_STATS"],
+}
+
+
+def build_topc(names) -> None:
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    procs = []
+    for name in {"base", *names}:
+        d = OUT / f"topc_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        procs.append(subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *TOPC_VARIANTS[name],
+             "-o", str(d / "libs8_scores.so"), str(CSRC / "s8_scores.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(out)
+
+
+def _load_s8(name: str):
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    lib = ctypes.CDLL(str(OUT / f"topc_{name}" / "libs8_scores.so"))
+    for fn, argtypes in s8.SOURCE.signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    if name == "stats":
+        lib.fpv_s8_topc_stats.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def time_topc(name: str, rnd: str) -> None:
+    """Child: the variant ``name`` and the full kernel, in turns."""
+    import torch
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+
+    def ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, n, d, c = 1024, 1 << 20, 768, 40
+    qi = torch.randint(-127, 128, (b, d), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    codes = torch.randint(-128, 128, (n, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    qscale = torch.rand(b, generator=gen, device="cuda") * 1e-3 + 1e-4
+    const = torch.randn(b, generator=gen, device="cuda")
+    qn = torch.rand(b, generator=gen, device="cuda") * 10 + 1
+    rinv = torch.rand(n, generator=gen, device="cuda") + 0.5
+    mask = torch.rand(n, generator=gen, device="cuda") < 0.9
+    args = (qi, codes, qscale, const, qn, rinv, mask)
+    base, var = _load_s8("base"), _load_s8(name)
+
+    def fused(lib):
+        def run():
+            s8.SOURCE._lib = lib
+            return s8.s8_topc(*args, c=c, metric="cosine")
+        return run
+
+    if name == "merge":
+        lib = base
+        g = lib.fpv_s8_topc_blocks(b, n)
+        width = c + s8.TOPC_SLACK
+        lists = torch.empty((b, g, width, 2), dtype=torch.int32,
+                            device="cuda")
+        vals = torch.empty((b, c), device="cuda")
+        rows = torch.empty((b, c), dtype=torch.int64, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        qparams = torch.stack([qscale, const, qn, 1.0 / qn], dim=1)
+        lib.fpv_s8_topc(s8.kernel_query(qi).data_ptr(), codes.data_ptr(),
+                        qparams.data_ptr(), rinv.data_ptr(), mask.data_ptr(),
+                        lists.data_ptr(), b, n, d,
+                        s8.kernel_query(qi).shape[1], c, 0, stream)
+        variant = lambda: lib.fpv_s8_topc_merge(  # noqa: E731
+            lists.data_ptr(), vals.data_ptr(), rows.data_ptr(), b, g, width,
+            c, stream)
+    else:
+        variant = fused(var)
+    full = fused(base)
+    old = lambda: s8._topc_from_scores(s8.folded_epilogue(  # noqa: E731
+        s8.s8_scores(qi, codes), qscale, const, qn, rinv, "cosine"), mask, c)
+    if name == "stats":
+        # rows that entered a list and compactions, per block and query
+        s8.SOURCE._lib = var
+        s8.s8_topc(*args, c=c, metric="cosine")
+        got = (ctypes.c_ulonglong * 2)()
+        var.fpv_s8_topc_stats(got)
+        g = var.fpv_s8_topc_blocks(b, n)
+        print(f"round {rnd} stats: {got[0] / (b * g):.1f} rows entered, "
+              f"{got[1] / (b * g):.2f} compactions a block and query "
+              f"(G = {g})", flush=True)
+        return
+    t_full, t_var = ms(full), ms(variant)
+    t_var2, t_full2 = ms(variant), ms(full)
+    line = (f"round {rnd} {name:12s} variant {t_var:.4f} / {t_var2:.4f} ms  "
+            f"full s8_topc {t_full:.4f} / {t_full2:.4f} ms")
+    if name == "base":
+        line += f"  replaced route {ms(old, reps=3):.4f} ms"
+    print(line, flush=True)
+
+
+def main_topc(names) -> None:
+    build_topc(names)
+    for rnd in range(2):
+        for name in names:
+            try:
+                subprocess.run([sys.executable, __file__, "topc-child", name,
+                                str(rnd)], timeout=180, check=False)
+            except subprocess.TimeoutExpired:
+                print(f"round {rnd} {name}: timed out", flush=True)
+
+
 def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "grouped-child":
         time_grouped(sys.argv[2:])
         return
+    if len(sys.argv) == 4 and sys.argv[1] == "topc-child":
+        time_topc(*sys.argv[2:])
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "grouped":
         main_grouped()
+    elif sys.argv[1:2] == ["topc"]:
+        main_topc([a for a in sys.argv[2:] if a in TOPC_VARIANTS]
+                  or list(TOPC_VARIANTS))
     elif len(sys.argv) == 4 and sys.argv[2].isdigit():
         time_variant(*sys.argv[1:])
         return
