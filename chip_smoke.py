@@ -58,9 +58,10 @@ TUNE_TARGET = 0.96
 QPS_BATCHES = 4               # distinct query batches per timed mode
 # bench.py's ivf_grouped_int8_rr4 recipe (bench.py:263-316)
 IVF_BUILD = {"nlist": 2048, "nprobe": 8, "iters": 6, "max_cell_factor": 1.25}
-# one H100 SXM at its 700 W limit (NVIDIA's data sheet, dense rates)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the card's rates (one H100 SXM at its 700 W limit, NVIDIA's data sheet,
+# dense) come from the cost model, their one source in the package:
+# core/costmodel.py HBM_BW and TENSOR_RATE
+_RATE_NAME = {"bf16": "bfloat16", "int8": "int8", "f32": "float32"}
 
 
 def log(msg: str) -> None:
@@ -71,8 +72,9 @@ def bound(nbytes: float, ops: float, op_type: str) -> dict:
     """The least time the card could take: each input byte read once and
     each output byte written once at the memory rate, or the operations at
     the peak rate of their type, whichever is larger."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    from fastpyvectordb_tpu_torch.core import costmodel as cm
+    by_bytes = nbytes / cm.HBM_BW * 1e3
+    by_ops = ops / cm.TENSOR_RATE[_RATE_NAME[op_type]] * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes": nbytes, "bound_ops": ops, "bound_op_type": op_type}
@@ -148,11 +150,7 @@ def phase_device():
 
 def phase_build():
     from fastpyvectordb_tpu_torch.kernels import cuda_build
-    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
-    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
-    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
-    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
-    sources = (qk.SOURCE, ik.SOURCE, ik.SOURCE_PQ, hk.SOURCE, s8.SOURCE)
+    sources = cuda_build.all_sources()
     t0 = time.perf_counter()
     cuda_build.build_all(*sources)
     log(f"[build] {', '.join(src.name + '.cu' for src in sources)} built "
@@ -735,6 +733,8 @@ def phase_main_path(tmpdir: Path):
     qsets = [clustered(gen, BATCH, centers, 0.5).cpu().numpy()
              for _ in range(QPS_BATCHES + 2)]
     queries, tune_queries, timing_batches = qsets[0], qsets[1], qsets[2:]
+    stream_batches = [clustered(gen, BATCH, centers, 0.5).cpu().numpy()
+                      for _ in range(STREAM_BATCHES)]
     block = corpus[:BLOCK_ROWS].clone()
     host = corpus.cpu().numpy()
     del corpus
@@ -858,6 +858,7 @@ def phase_main_path(tmpdir: Path):
     kernels.update(s8_main_path(scan8, queries))
     kernels.update(topc_main_path(scan8, queries,
                                   K * scan8.default_rerank))
+    phase_stream(col, stream_batches, results)
 
     ivf_kernels, ivf_launches = phase_ivf(col, bf, queries, tune_queries,
                                           timing_batches, truth, bf_truth,
@@ -922,10 +923,14 @@ def phase_main_path(tmpdir: Path):
         f"{col2._ann.nprobe}); compressed: binary ids {rec_b:.4f} of "
         f"before (rerank {cc2._quantized.default_rerank}), IVF-PQ ids "
         f"identical (nprobe {cc2._ann.nprobe}, rerank {cc2._ann.rerank})")
+    phase_optimize(col2, tune_queries, results)
     del col2, cc2, db2
     torch.cuda.empty_cache()
     phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
                         timing_batches, truth, results)
+    phase_wal(tmpdir, queries, results)
+    phase_outofcore(tmpdir, host, queries, tune_queries, timing_batches,
+                    truth, scores, results)
     return kernels, launches, results
 
 
@@ -1619,6 +1624,547 @@ def phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the pipelined stream, optimize() and prewarm()
+# ---------------------------------------------------------------------------
+
+STREAM_BATCHES = 8
+
+
+def phase_stream(col, batches, results):
+    """``search_arrays_stream`` over distinct B=1024 batches at depth 2 on
+    the 1M collection (exact f32): its triples equal ``search_arrays``' bit
+    for bit; QPS of the stream and of the synchronous calls in turns; the
+    int8 wire's overlap@10 against the default wire."""
+    import numpy as np
+    import torch
+
+    def sync():
+        return [col.search_arrays(qb, k=K) for qb in batches]
+
+    def stream():
+        return list(col.search_arrays_stream(iter(batches), k=K, depth=2))
+
+    want, got = sync(), stream()
+    for (wi, wd, wr), (gi, gd, gr) in zip(want, got):
+        if not (np.array_equal(wd, gd) and np.array_equal(wr, gr)
+                and (wi == gi).all()):
+            raise AssertionError("stream: a triple differs from "
+                                 "search_arrays'")
+    qps = {}
+    for name, fn in (("sync", sync), ("stream", stream), ("stream", stream),
+                     ("sync", sync)):    # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        qps.setdefault(name, []).append(
+            len(batches) * BATCH / (time.perf_counter() - t0))
+    r8 = [r for _, _, r in col.search_arrays_stream(
+        iter(batches[:2]), k=K, wire_dtype="int8")]
+    overlap = float(np.mean([recall_at_k(a, b[2])
+                             for a, b in zip(r8, want[:2])]))
+    if overlap < 0.9:
+        raise AssertionError(f"stream int8 wire: overlap@10 {overlap:.4f}")
+    results["stream_exact_f32"] = {
+        "recall": 1.0, "qps": float(np.mean(qps["stream"])),
+        "qps_runs": qps["stream"], "sync_qps_runs": qps["sync"],
+        "int8_wire_overlap": overlap, "batches": len(batches), "depth": 2}
+    log(f"[stream] {len(batches)} batches of {BATCH} at depth 2: triples "
+        f"equal to search_arrays' bit for bit; QPS stream {qps['stream']} "
+        f"vs sync {qps['sync']} (in turns); int8 wire overlap@10 "
+        f"{overlap:.4f}")
+
+
+def measure_constants(store):
+    """The cost model's two measured constants on this card:
+    GATHER_ROW_LAT, what a randomly gathered row costs beyond its bytes (a
+    B=1024 x 40-row gather from the 1M x 768 f32 store), and
+    SERIAL_DISPATCH, one data-dependent serial step (a gather of 128 rows,
+    their product with a query and a top-32 whose rows the next step
+    gathers), queued on one stream and timed with CUDA events."""
+    import torch
+    from fastpyvectordb_tpu_torch.core import costmodel as cm
+    vectors = store.vectors[:store.count]
+    n, d = vectors.shape
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    idxs = [torch.randint(0, n, (BATCH * 40,), generator=gen, device="cuda")
+            for _ in range(8)]
+    it = iter(range(10 ** 9))
+    ms = cuda_ms(lambda: vectors[idxs[next(it) % 8]], reps=50)
+    rows = BATCH * 40
+    row_bytes = d * vectors.element_size()
+    gather_lat = max(ms / 1e3 / rows - row_bytes / cm.HBM_BW, 0.0)
+    q = vectors[0].clone()
+    state = {"idx": torch.randint(0, n, (128,), generator=gen,
+                                  device="cuda")}
+
+    def step():
+        s = vectors[state["idx"]] @ q
+        top = torch.topk(s, 32).indices
+        state["idx"] = (state["idx"][top].repeat(4) * 7919
+                        + torch.arange(128, device="cuda")) % n
+
+    serial = cuda_ms(step, reps=400) / 1e3
+    return {"GATHER_ROW_LAT": gather_lat, "SERIAL_DISPATCH": serial,
+            "gather_ms": ms, "gather_rows": rows, "row_bytes": row_bytes}
+
+
+def phase_optimize(col, tune_queries, results):
+    """``optimize()`` on the 1M collection with its IVF index and an int8
+    scan (re-rank tuned on held-out queries): every candidate timed on the
+    card; then the micro-timing of the cost model's measured constants,
+    then ``prewarm(max_batch=1024)``."""
+    import torch
+    from fastpyvectordb_tpu_torch.core import costmodel as cm
+    scan = col.enable_quantized_scan("int8", tune=False)
+    scan.tune_rerank(tune_queries[:256], target_recall=RECALL_GATE)
+    t0 = time.perf_counter()
+    report = col.optimize()
+    opt_s = time.perf_counter() - t0
+    for mode in ("exact", "quantized", "ann"):
+        if "cost_us_measured" not in report.get(mode, {}):
+            raise AssertionError(f"optimize: {mode} has no measured cost: "
+                                 f"{report}")
+    log(f"[optimize] {opt_s:.3f} s; installed {report['installed']}; "
+        f"report {json.dumps(report)}")
+    consts = measure_constants(col._store)
+    card = nvidia_smi_line()
+    log(f"[optimize] cost model constants measured on {card}: "
+        f"GATHER_ROW_LAT {consts['GATHER_ROW_LAT']!r} s/row (gather of "
+        f"{consts['gather_rows']} rows of {consts['row_bytes']} B: "
+        f"{consts['gather_ms']!r} ms), SERIAL_DISPATCH "
+        f"{consts['SERIAL_DISPATCH']!r} s/step; the package holds "
+        f"{cm.GATHER_ROW_LAT!r} and {cm.SERIAL_DISPATCH!r}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = col.prewarm(max_batch=1024)
+    log(f"[prewarm] max_batch 1024 in {time.perf_counter() - t0:.2f} s: "
+        f"{warm}")
+    if len(warm) != 3 * 11:
+        raise AssertionError(f"prewarm: {sorted(warm)}")
+    results["optimize"] = {"installed": report["installed"],
+                           "report": report, "constants": consts,
+                           "card": card, "prewarm_s": warm}
+
+
+# ---------------------------------------------------------------------------
+# WAL durability: a writer on the card, SIGKILLed after its last ack
+# ---------------------------------------------------------------------------
+
+WAL_BATCHES, WAL_ROWS, WAL_FSYNC_BATCHES = 64, 4096, 4
+WAL_CHANGED = 41                  # 1% of a batch's ids deleted, 1% updated
+
+_WAL_WRITER = '''
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from fastpyvectordb_tpu_torch import VectorDB
+col = VectorDB(sys.argv[2], device="cuda").create_collection(
+    "w", dimensions=cs.DIMS, metric="cosine", durability="wal",
+    wal_fsync=True)
+for b in range(cs.WAL_BATCHES):
+    if b == cs.WAL_FSYNC_BATCHES:
+        col._wal.fsync = False
+    v, ids, metas, dead, upd = cs.wal_batch(b)
+    t0 = time.perf_counter()
+    col.insert_batch(v, ids, metas)
+    t1 = time.perf_counter()
+    col.delete_batch(dead)
+    for i in upd:
+        col.update_metadata(i, {"upd": b})
+    print(f"ack {b} {t1 - t0!r} {time.perf_counter() - t1!r}", flush=True)
+print("done", flush=True)
+time.sleep(3600)
+'''
+
+
+def wal_batch(b: int):
+    """Batch ``b`` of the WAL phase: rows from a seeded generator on the
+    card, ids, metadata, the ids it deletes and those it updates."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1000 + b)
+    v = torch.randn((WAL_ROWS, DIMS), generator=gen,
+                    device="cuda").cpu().numpy()
+    ids = [f"w{b}_{i}" for i in range(WAL_ROWS)]
+    metas = [{"b": b, "i": i, "cat": i % 10} for i in range(WAL_ROWS)]
+    step = WAL_ROWS // WAL_CHANGED
+    return (v, ids, metas, ids[::step][:WAL_CHANGED],
+            ids[step // 2::step][:WAL_CHANGED])
+
+
+def phase_wal(tmpdir: Path, queries, results):
+    """A child process writes a ``durability="wal"`` collection on the card
+    (64 batches of 4,096 x 768 rows with metadata, 1% of each batch's ids
+    deleted and 1% updated, the first 4 batches with fsync) and prints an
+    acknowledgement a batch; after the last one the parent SIGKILLs it (no
+    ``save()``), reopens the directory through ``VectorDB`` and checks
+    every acknowledged write, a B=1024 search against an in-memory
+    collection given the same operations, that ``save()`` empties the log
+    and that a further reopen reads the snapshot alone."""
+    import signal
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch import Collection, CollectionConfig, VectorDB
+    path = tmpdir / "wal_db"
+    proc = subprocess.Popen([sys.executable, "-c", _WAL_WRITER, str(ROOT),
+                             str(path)], stdout=subprocess.PIPE, text=True)
+    acks = []
+    try:
+        for line in proc.stdout:
+            if line.startswith("ack"):
+                _, b, ins, rest = line.split()
+                acks.append((int(b), float(ins), float(rest)))
+            elif line.startswith("done"):
+                break
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    if [a[0] for a in acks] != list(range(WAL_BATCHES)):
+        raise AssertionError(f"wal: acknowledged {len(acks)} batches")
+    log_bytes = (path / "w" / "wal.log").stat().st_size
+    t0 = time.perf_counter()
+    db = VectorDB(str(path), device="cuda")
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    col = db["w"]
+    ref = Collection(CollectionConfig(name="ref", dimensions=DIMS,
+                                      metric="cosine"), device="cuda")
+    live, metas = [], {}
+    for b in range(WAL_BATCHES):
+        v, ids, md, dead, upd = wal_batch(b)
+        ref.insert_batch(v, ids, md)
+        ref.delete_batch(dead)
+        for i in upd:
+            ref.update_metadata(i, {"upd": b})
+        gone = set(dead)
+        keep = [j for j, i in enumerate(ids) if i not in gone]
+        got = col.get_batch([ids[j] for j in keep], include_vectors=True)
+        if any(g is None for g in got) or any(
+                col.get(i) is not None for i in dead):
+            raise AssertionError(f"wal: batch {b}: ids differ")
+        if not np.array_equal(np.stack([g["vector"] for g in got]), v[keep]):
+            raise AssertionError(f"wal: batch {b}: vectors differ")
+        want_md = [{**md[j], **({"upd": b} if ids[j] in set(upd) else {})}
+                   for j in keep]
+        if [g["metadata"] for g in got] != want_md:
+            raise AssertionError(f"wal: batch {b}: metadata differ")
+        live += [ids[j] for j in keep]
+    n_live = WAL_BATCHES * (WAL_ROWS - WAL_CHANGED)
+    if col.count() != n_live or sorted(col.all_ids()) != sorted(live):
+        raise AssertionError(f"wal: count {col.count()} != {n_live}")
+    a, b_ = col.search_arrays(queries, k=K), ref.search_arrays(queries, k=K)
+    if not (np.array_equal(a[1], b_[1]) and np.array_equal(a[2], b_[2])):
+        raise AssertionError("wal: a B=1024 search differs from the "
+                             "in-memory collection's")
+    col.save()
+    if (path / "w" / "wal.log").stat().st_size != 0:
+        raise AssertionError("wal: save() left the log non-empty")
+    del col, db
+    db2 = VectorDB(str(path), device="cuda")
+    c2 = db2["w"]
+    if c2.count() != n_live or not np.array_equal(
+            c2.search_arrays(queries, k=K)[2], b_[2]):
+        raise AssertionError("wal: the reopened snapshot differs")
+    fs = [a[1] for a in acks[:WAL_FSYNC_BATCHES]]
+    nofs = [a[1] for a in acks[WAL_FSYNC_BATCHES:]]
+    out = {"rows": WAL_BATCHES * WAL_ROWS, "live": n_live,
+           "log_bytes": log_bytes, "replay_s": replay_s,
+           "insert_rows_per_s_fsync": WAL_ROWS * len(fs) / sum(fs),
+           "insert_rows_per_s": WAL_ROWS * len(nofs) / sum(nofs),
+           "delete_update_s_per_batch": float(np.mean([a[2] for a in acks]))}
+    results["wal"] = out
+    log(f"[wal] SIGKILLed writer after {len(acks)} acknowledged batches; "
+        f"reopen (replay of {log_bytes} log bytes) {replay_s:.2f} s; every "
+        f"acknowledged write read back (ids, vectors bit for bit, "
+        f"metadata), search equal to the in-memory collection's, save() "
+        f"empties the log, the snapshot reopens alone: {out}")
+    del c2, db2, ref
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# out-of-core: a 4M x 768 f32 memmap streamed tile by tile
+# ---------------------------------------------------------------------------
+
+OOC_ROWS = 1 << 22            # 4,194,304 rows: 12.9 GB of f32 (a cut)
+OOC_TILE = 262_144            # the searchers' default tile
+OOC_SMALL = 1 << 20           # int4 / binary / pq depth (a cut)
+OOC_CODECS = {"int4": "s8_topc", "binary": "hamming_mxu_scores",
+              "pq": None}
+
+
+def write_ooc_corpus(path: Path, host):
+    """The out-of-core corpus as an ``np.memmap``: the 1M collection's rows,
+    then rows made on the card from a seeded generator around the same
+    centres, written one tile at a time (the host never holds it whole)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                   shape=(OOC_ROWS, DIMS))
+    mm[:host.shape[0]] = host
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    centers = 2.0 * torch.randn((N_CENTERS, DIMS), generator=gen,
+                                device="cuda")
+    for s in range(host.shape[0], OOC_ROWS, OOC_TILE):
+        e = min(s + OOC_TILE, OOC_ROWS)
+        t = clustered(gen, e - s, centers, 1.0)
+        t /= torch.linalg.norm(t, dim=1, keepdim=True)
+        mm[s:e] = t.cpu().numpy()
+    mm.flush()
+    del mm
+    log(f"[ooc] corpus {OOC_ROWS}x{DIMS} f32 ({OOC_ROWS * DIMS * 4 / 1e9:.1f}"
+        f" GB) written to a memmap in {time.perf_counter() - t0:.1f} s")
+    return np.load(path, mmap_mode="r")
+
+
+def link_rate() -> float:
+    """Pinned host -> device bytes/s: one 1 GiB copy, CUDA events."""
+    import torch
+    n = 1 << 30
+    h = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    d = torch.empty(n, dtype=torch.uint8, device="cuda")
+    d.copy_(h, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    d.copy_(h, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    return n / (start.elapsed_time(end) / 1e3)
+
+
+def _tile_arrays(searcher):
+    """What a search stages a tile, as (host arrays by tile, device dtypes):
+    the corpus rows (exact) or the codes and the row stat (quantized; rinv,
+    the smoke's metric being cosine)."""
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch.core import outofcore as ooc
+    if isinstance(searcher, ooc.OutOfCoreSearcher):
+        wire = (torch.bfloat16 if searcher.compute_dtype == "bfloat16"
+                else torch.float32)
+        return (lambda s, e: [np.asarray(searcher.corpus[s:e])]), [wire]
+    codes = searcher._codes
+    dt = [ooc._TILE_DTYPE[searcher.codec]]
+    if searcher.codec in ("int8", "int4"):
+        dt.append(torch.float32)
+        return (lambda s, e: [codes[s:e], searcher._rinv[s:e]]), dt
+    if searcher.codec == "binary":
+        return (lambda s, e: [codes[s:e].view(np.int32)]), dt
+    return (lambda s, e: [codes[s:e]]), dt
+
+
+def copies_alone(searcher) -> float:
+    """Seconds to stage every tile of a search with no scoring."""
+    import torch
+    from fastpyvectordb_tpu_torch.core import outofcore as ooc
+    arrays, dts = _tile_arrays(searcher)
+    n, t = searcher.n, min(searcher.tile_rows, searcher.n)
+    specs = [((t,) + tuple(a.shape[1:]), dt)
+             for a, dt in zip(arrays(0, 1), dts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stager = ooc.TileStager(ooc.streams_for(torch.device("cuda")), specs)
+    for s in range(0, n, t):
+        parts = arrays(s, min(s + t, n))
+        stager.stage(parts[0].shape[0], lambda *v: [
+            x.copy_(ooc._host_tensor(p)) for x, p in zip(v, parts)])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def kernels_alone(searcher, q, k: int, c: int) -> float:
+    """Seconds of a search's tile steps and merges with every tile already
+    on the card (the first tile's data, at each tile's size)."""
+    import torch
+    from fastpyvectordb_tpu_torch.core import outofcore as ooc
+    arrays, dts = _tile_arrays(searcher)
+    n, t = searcher.n, min(searcher.tile_rows, searcher.n)
+    dev = [ooc._host_tensor(a).to("cuda", dt) if dt == torch.bfloat16
+           else ooc._host_tensor(a).to("cuda")
+           for a, dt in zip(arrays(0, t), dts)]
+    exact = isinstance(searcher, ooc.OutOfCoreSearcher)
+    if exact:
+        qd = torch.as_tensor(q, device="cuda")
+    else:
+        step = searcher._coarse_step(q)
+
+    def run():
+        best = None
+        for s in range(0, n, t):
+            rows = min(t, n - s)
+            if exact:
+                v, r = ooc._tile_step(qd, dev[0][:rows], None,
+                                      metric=searcher.metric, k=k,
+                                      compute_dtype=searcher.compute_dtype)
+            else:
+                stat = dev[1][:rows] if len(dev) > 1 else None
+                v, r = step(dev[0][:rows], stat, None, min(c, rows))
+            best = ooc._merge(best, v, r + s, c)
+        return best
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def ooc_pass(label, searcher, batches, rate, results, launches_of=None,
+             truth=None, **search_kw):
+    """QPS over distinct batches; link bytes and the streamed pass's share
+    of the link bound; the streamed pass (a quantized search's coarse scan,
+    up to its candidates on the host) beside its copies alone and its
+    kernels alone, and the host re-rank after it; the launch counts of one
+    pass."""
+    import numpy as np
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    walls, coarse, rows = [], [], None
+    for i, qb in enumerate(batches):
+        for mod in (hk, s8):
+            mod.LAUNCHES.update({key: 0 for key in mod.LAUNCHES})
+        t0 = time.perf_counter()
+        _, r = searcher.search(qb, k=K, **search_kw)
+        walls.append(time.perf_counter() - t0)
+        # the streamed pass alone: an exact search is nothing else; a
+        # quantized one then gathers and re-ranks on the host
+        coarse.append(getattr(searcher, "last_coarse_s", walls[-1]))
+        if i == 0:
+            counted = {k: v for mod in (hk, s8)
+                       for k, v in mod.LAUNCHES.items() if v}
+            rows = r
+    tiles = -(-searcher.n // searcher.tile_rows)
+    c = K * (search_kw.get("rerank") or getattr(searcher, "rerank", 1))
+    c = min(c, searcher.n)
+    if launches_of is not None:
+        name = "s8_topc_wide" if (launches_of == "s8_topc"
+                                  and c > s8.TOPC_MAX) else launches_of
+        if counted.get(name) != tiles:
+            raise AssertionError(f"ooc {label}: {counted}, expected {name} "
+                                 f"once per tile ({tiles})")
+    link = searcher.last_link_bytes
+    streamed = float(np.mean(coarse))
+    copies = copies_alone(searcher)
+    kern = kernels_alone(searcher, batches[0], K, c)
+    out = {"rows": searcher.n, "tiles": tiles,
+           "qps": len(batches) * BATCH / sum(walls), "walls_s": walls,
+           "streamed_pass_s": coarse,
+           "host_rerank_s": float(np.mean(walls)) - streamed,
+           "link_bytes": link, "link_bound_s": link / rate,
+           "link_share": link / rate / streamed, "copies_alone_s": copies,
+           "kernels_alone_s": kern,
+           "overlap_saves_s": copies + kern - streamed, "launches": counted}
+    if truth is not None:
+        out["recall"] = recall_at_k(rows, truth)
+    results[f"ooc_{label}"] = out
+    log(f"[ooc] {label}: {out}")
+    return rows
+
+
+def phase_outofcore(tmpdir, host, queries, tune_queries, timing_batches,
+                    truth, exact_scores, results):
+    """``OutOfCoreSearcher`` (f32 and bf16) and ``QuantizedOutOfCoreSearcher``
+    (int8) over a 4M x 768 memmap; int4, binary and pq over its first
+    1,048,576 rows.  Checks: the streamed exact scan of the 1M collection's
+    rows equals its in-memory exact scan; int8 codes written through
+    ``codes_path`` and adopted with ``codes_reuse=True`` search alike; each
+    codec tuned on 256 held-out queries reaches recall@10 >= 0.95 against
+    the streamed exact search on 1,024 others; s8_topc (int8, int4) and B5
+    (binary) launch once per tile."""
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch.core.outofcore import (
+        OutOfCoreSearcher, QuantizedOutOfCoreSearcher)
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    mm = write_ooc_corpus(tmpdir / "ooc_corpus.npy", host)
+    rate = link_rate()
+    log(f"[ooc] pinned host -> device link: {rate / 1e9:.2f} GB/s (1 GiB "
+        "copy, CUDA events)")
+    results["ooc_link"] = {"pinned_h2d_bytes_per_s": rate}
+    batches = timing_batches[:2]
+
+    # the streamed exact scan of the 1M collection's rows (3 full tiles and
+    # a ragged one) against the collection's in-memory exact scan
+    d1, r1 = OutOfCoreSearcher(mm[:host.shape[0]], tile_rows=OOC_TILE,
+                               device="cuda").search(queries, k=K)
+    if not same_up_to_ties(d1, r1, exact_scores, truth, tol=1e-5):
+        raise AssertionError("ooc: the streamed exact scan of the 1M rows "
+                             "differs from the in-memory scan")
+    log(f"[ooc] streamed exact scan of the {host.shape[0]} collection rows: "
+        f"equal to the in-memory exact scan up to ties (max score gap "
+        f"{np.abs(d1 - exact_scores).max():.3g})")
+
+    exact = OutOfCoreSearcher(mm, tile_rows=OOC_TILE, device="cuda")
+    _, truth4 = exact.search(queries, k=K)
+    ooc_pass("exact_f32", exact, batches, rate, results)
+    bf = OutOfCoreSearcher(mm, tile_rows=OOC_TILE, compute_dtype="bfloat16",
+                           device="cuda")
+    _, rbf = bf.search(queries, k=K)   # also the timed passes' warm-up
+    ooc_pass("exact_bf16", bf, batches, rate, results)
+    results["ooc_exact_bf16"]["recall"] = recall_at_k(rbf, truth4)
+
+    def build(label, corpus, **kw):
+        t0 = time.perf_counter()
+        s = QuantizedOutOfCoreSearcher(corpus, tile_rows=OOC_TILE,
+                                       device="cuda", **kw)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rr = s.tune_rerank(tune_queries[:256], k=K, target_recall=TUNE_TARGET)
+        tune_s = time.perf_counter() - t0
+        log(f"[ooc] {label}: build {build_s:.1f} s, tune {tune_s:.1f} s -> "
+            f"rerank {rr}")
+        return s, build_s
+
+    codes_path = str(tmpdir / "ooc_int8_codes.npy")
+    i8, build_s = build("int8", mm, codec="int8", codes_path=codes_path)
+    ooc_pass("int8", i8, batches, rate, results, "s8_topc")
+    d8, r8 = i8.search(queries, k=K)
+    again = QuantizedOutOfCoreSearcher(mm, codec="int8", tile_rows=OOC_TILE,
+                                       device="cuda", codes_path=codes_path,
+                                       codes_reuse=True, rerank=i8.rerank)
+    d8b, r8b = again.search(queries, k=K)
+    if not (np.array_equal(d8, d8b)
+            and same_up_to_ties(d8, r8, d8b, r8b, tol=0.0)):
+        raise AssertionError("ooc int8: codes_reuse searches differently")
+    del again
+    res = results["ooc_int8"]
+    res.update(recall=recall_at_k(r8, truth4), rerank=i8.rerank,
+               build_s=build_s)
+    log(f"[ooc] int8 codes adopted with codes_reuse=True: equal results; "
+        f"recall@10 {res['recall']:.4f} at rerank {i8.rerank}")
+    del i8
+
+    small = mm[:OOC_SMALL]
+    _, truth_s = OutOfCoreSearcher(small, tile_rows=OOC_TILE,
+                                   device="cuda").search(queries, k=K)
+    for codec, kernel in OOC_CODECS.items():
+        kw = {"pq_k": 16} if codec == "pq" else {}
+        s, build_s = build(codec, small, codec=codec, **kw)
+        ooc_pass(codec, s, batches, rate, results, kernel)
+        _, rows = s.search(queries, k=K)
+        results[f"ooc_{codec}"].update(recall=recall_at_k(rows, truth_s),
+                                       rerank=s.rerank, build_s=build_s)
+        del s
+    for label in ("int8", "int4", "binary", "pq"):
+        r = results[f"ooc_{label}"]["recall"]
+        if r < RECALL_GATE:
+            raise AssertionError(f"ooc {label}: recall@10 {r:.4f} < "
+                                 f"{RECALL_GATE}")
+    log("[ooc] recall@10 against the streamed exact search: " + ", ".join(
+        f"{c} {results[f'ooc_{c}']['recall']:.4f} (rerank "
+        f"{results[f'ooc_{c}']['rerank']})"
+        for c in ("int8", "int4", "binary", "pq")))
+    for mod in (hk, s8):
+        mod.LAUNCHES.update({key: 0 for key in mod.LAUNCHES})
+    del mm
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch  # noqa: F401 - a missing torch fails here, with no result
     if not (ROOT / "fastpyvectordb_tpu_torch").is_dir():
@@ -1644,11 +2190,17 @@ def main() -> int:
         "s8_scores_tn": ("s8_scores.cu", f"{lab}:72"),
         # B8's redesign: the same scan with a running top-c epilogue
         "s8_topc": ("s8_scores.cu", f"{lab}:50")}
+    # each counted path's launches by kernel (BigCollection, out-of-core)
+    by_path = {}
+    for mode, r in results.items():
+        for name, n in r.get("launches", {}).items():
+            by_path.setdefault(name, {})[mode] = n
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"fastpyvectordb_tpu_torch/csrc/{src}",
          "replaces": tpu,
-         "launches": launches[name], **kernels[name]}
+         "launches": launches[name],
+         "launches_by_path": by_path.get(name, {}), **kernels[name]}
         for name, (src, tpu) in where.items()],
         "modes": results}
     print(json.dumps(line), flush=True)

@@ -3,8 +3,14 @@
 The same collection API and on-disk formats as the JAX package, on torch
 tensors: ``VectorDB`` / ``Collection`` with the exact scan, the int8 / int4
 / binary / pq two-stage quantized scans, IVF (flat, grouped, int8 cells)
-and IVF-PQ; the standalone quantizers; and ``BigCollection`` (host vectors,
-device codes) for corpora beyond device memory.  Every TPU Pallas kernel of
+and IVF-PQ, write-ahead-log durability (``durability="wal"``), the
+pipelined ``search_arrays_stream``, ``optimize()`` on an H100 cost model
+and ``prewarm()``; the standalone quantizers; ``BigCollection`` (host
+vectors, device codes) and the streamed out-of-core searchers
+(``core/outofcore.py``: host corpus and host codes, tile by tile through
+pinned buffers and a copy stream) for corpora beyond device memory.  What
+still raises ``NotImplementedError``: the graph ANN kind and
+``as_sharded_searcher``.  Every TPU Pallas kernel of
 the JAX package has a hand-written Hopper counterpart under ``csrc/``
 (``quant_scores.cu``, ``hamming_scores.cu``, ``s8_scores.cu``,
 ``grouped_cell_scores.cu``, ``grouped_cell_scores_pq.cu``), built with

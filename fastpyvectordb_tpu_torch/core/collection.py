@@ -1,6 +1,8 @@
 """Core Collection: CRUD + exact, quantized and IVF search + filters +
 persistence (port of ``fastpyvectordb_tpu/core/collection.py``: the exact
-scan, the int8 / int4 / binary / pq two-stage scans, IVF and IVF-PQ).
+scan, the int8 / int4 / binary / pq two-stage scans, IVF and IVF-PQ,
+write-ahead-log durability, the pipelined ``search_arrays_stream``,
+``optimize()`` and ``prewarm()``).
 
 Vectors live in a DeviceVectorStore on the collection's torch device
 (``device="cuda"`` unless the caller passes ``device="cpu"``).  Filters
@@ -10,8 +12,8 @@ Persistence is one FPVT container per collection, byte-compatible with the
 JAX package, and goes through ``state.collection_from_sections``.
 
 Entry points of the JAX Collection that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (the graph ANN kind, WAL
-durability, ``optimize``, ``prewarm``, streaming and sharded search).
+``NotImplementedError`` naming their ROADMAP item: the graph ANN kind and
+``as_sharded_searcher``.
 """
 
 from __future__ import annotations
@@ -78,18 +80,27 @@ class Collection:
         self._rebuild_thread: Optional[threading.Thread] = None
         self._row_epoch = 0  # bumped by row renumbering (compact/load)
         self._serving_mode: Optional[str] = None
+        self._wal = None  # write-ahead log (persist/wal.py), durability="wal"
+        # durability is a runtime preference, not a data property: the
+        # constructor's requested value wins over the snapshot's (else
+        # enabling the WAL on a snapshot collection would be ignored)
         requested_durability = getattr(config, "durability", "snapshot")
-        if requested_durability == "wal" or (
-                self.base_path is not None
-                and (self.base_path / "wal.log").exists()):
-            # replaying (or ignoring) a JAX-written log is not ported:
-            # loading only the snapshot would drop the logged writes
-            raise _not_ported("durability='wal'",
-                              "WAL durability (ROADMAP queue A item 10)")
+        requested_fsync = getattr(config, "wal_fsync", False)
         if self.base_path is not None and (self.base_path / STORE_FILE).exists():
             self._load()
             self.config.durability = requested_durability
+            self.config.wal_fsync = requested_fsync
+        if self.base_path is not None and requested_durability == "wal":
+            # open the log, then re-apply what it holds on top of the
+            # snapshot; with snapshot durability a log is left unread, as
+            # in the JAX package
+            from ..persist.wal import WriteAheadLog
+            self._wal = WriteAheadLog(self.base_path / "wal.log",
+                                      fsync=requested_fsync)
+            self._replay_wal()
         if self.base_path is not None:
+            # VectorDB reads durability and dims back from this sidecar
+            # before it decides whether to replay a log
             self._write_config_sidecar()
 
     def _write_config_sidecar(self) -> None:
@@ -158,6 +169,12 @@ class Collection:
             dup = [i for i in ids if i in self._id_to_row]
             if dup:
                 raise ValueError(f"IDs already exist: {dup[:8]}")
+            if self._wal is not None:
+                # the caller's f32 rows: a bf16 store rounds them on append,
+                # and replay rounds the same rows the same way
+                self._wal.log_insert(
+                    ids, metadatas if metadatas is not None else [None] * n,
+                    arr)
             rows = self._store.append(arr)
             for rid, row in zip(ids, rows):
                 self._id_to_row[rid] = int(row)
@@ -210,6 +227,10 @@ class Collection:
 
     def delete_batch(self, ids: Sequence[str]) -> int:
         with self._lock:
+            if self._wal is not None:
+                live = [i for i in ids if str(i) in self._id_to_row]
+                if live:
+                    self._wal.log_delete(live)
             rows = []
             for i in ids:
                 r = self._id_to_row.pop(str(i), None)
@@ -230,6 +251,8 @@ class Collection:
             r = self._id_to_row.get(str(id))
             if r is None:
                 return False
+            if self._wal is not None:
+                self._wal.log_update_metadata(str(id), metadata, merge)
             if merge and self._metadata[r]:
                 self._metadata[r] = {**self._metadata[r], **metadata}
             else:
@@ -278,10 +301,73 @@ class Collection:
                 np.full((b, k), np.inf, dtype=np.float32),
                 np.full((b, k), -1, dtype=np.int32))
 
-    def search_arrays_stream(self, *args, **kwargs):
-        raise _not_ported("search_arrays_stream",
-                          "pipelined serving on a CUDA side stream "
-                          "(ROADMAP queue A item 12)")
+    def search_arrays_stream(self, batches, k: int = 10,
+                             filter: Optional[Filter] = None,
+                             depth: int = 2,
+                             wire_dtype: Optional[str] = None):
+        """Pipelined ``search_arrays`` over an iterable of query batches:
+        yields one (ids, scores, rows) triple per batch, keeping up to
+        ``depth`` batches in flight, so batch i+1's upload and kernels are
+        queued while batch i's result comes back and is assembled.
+
+        Each batch's queries go up from pinned memory without holding the
+        host, and its result comes back into pinned memory by a copy queued
+        behind its kernels, followed by an event; draining a batch waits on
+        that event alone, never on the whole device.
+
+        wire_dtype: forwarded to the store (``"int8"`` ships 4x-compressed
+        query codes; None = bf16 when compute is bf16).  Pipelines the
+        exact scan; with a quantized or ANN serving mode installed the
+        stream makes one synchronous call a batch instead (still one triple
+        per batch) rather than silently changing mode."""
+        serving_exact = (self._serving_mode in (None, "exact")
+                         and (self.config.index == "flat"
+                              or self._ann is None))
+        if not serving_exact:
+            for q in batches:
+                yield self.search_arrays(q, k, filter)
+            return
+        from collections import deque
+        inflight: deque = deque()
+        for q in batches:
+            q = as_f32_matrix(q, self.config.dimensions, allow_device=True)
+            with self._lock:
+                if self._store.n_valid == 0:
+                    inflight.append((None, q.shape[0]))
+                else:
+                    dv, rv = self._store.search(
+                        q, k, self.config.metric,
+                        extra_mask=self._filter_mask(filter),
+                        compute_dtype=self.config.compute_dtype,
+                        return_device=True, wire_dtype=wire_dtype)
+                    inflight.append((self._fetch_async(dv, rv), q.shape[0]))
+            if len(inflight) >= max(1, depth):
+                yield self._drain_one(inflight, k)
+        while inflight:
+            yield self._drain_one(inflight, k)
+
+    @staticmethod
+    def _fetch_async(dv: torch.Tensor, rv: torch.Tensor):
+        """Queue the copy of a result to the host; (vals, rows, event)."""
+        if dv.device.type != "cuda":
+            return dv.numpy(), rv.to(torch.int32).numpy(), None
+        vh = torch.empty(dv.shape, dtype=dv.dtype, pin_memory=True)
+        rh = torch.empty(rv.shape, dtype=torch.int32, pin_memory=True)
+        vh.copy_(dv, non_blocking=True)
+        rh.copy_(rv.to(torch.int32), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return vh.numpy(), rh.numpy(), done
+
+    def _drain_one(self, inflight, k: int):
+        head, b = inflight.popleft()
+        if head is None:
+            return self._empty_arrays(b, k)
+        dists, rows, done = head
+        if done is not None:
+            done.synchronize()   # this batch's copy, not the whole device
+        with self._lock:
+            return self._arrays_of(dists, rows, k)
 
     def _arrays_of(self, dists, rows, k: int):
         """(dists, rows) -> the (ids, scores, rows) triple of
@@ -364,10 +450,50 @@ class Collection:
             q, k, self.config.metric, extra_mask=mask,
             compute_dtype=self.config.compute_dtype)
 
-    def prewarm(self, *args, **kwargs):
-        raise _not_ported("prewarm",
-                          "kernel warm-up replacing the XLA compile-cache "
-                          "primer (ROADMAP queue A item 15)")
+    def prewarm(self, max_batch: int = 1024, k: int = 10,
+                modes: Optional[Sequence[str]] = None) -> Dict[str, float]:
+        """Run the serving dispatch once at every power-of-two query batch
+        size up to ``max_batch`` (and the one covering it), so that a
+        deployment pays its start-up costs before the first request.  On
+        the card the first call also builds every hand kernel
+        (``cuda_build.build_all``, one ``nvcc`` per source at once), and the
+        runs warm the caching allocators and the libraries' handles.
+
+        modes: subset of {"exact", "quantized", "ann"}; defaults to the
+        paths this collection has enabled.  Returns {mode_bN: seconds}."""
+        import time as _time
+        if self._store.n_valid == 0:
+            return {}
+        if self.device.type == "cuda":
+            from ..kernels import cuda_build
+            cuda_build.build_all(*cuda_build.all_sources())
+        want = set(modes) if modes is not None else None
+
+        def on(name: str, enabled: bool) -> bool:
+            return enabled if want is None else (name in want)
+
+        def timed(fn) -> float:
+            t0 = _time.perf_counter()
+            fn()   # returns host arrays: the device has finished
+            return round(_time.perf_counter() - t0, 3)
+
+        rng = np.random.default_rng(0)
+        timings: Dict[str, float] = {}
+        b = 1
+        while not (b > max_batch and b // 2 >= max_batch):
+            q = rng.standard_normal(
+                (b, self.config.dimensions)).astype(np.float32)
+            if on("exact", True):
+                timings[f"exact_b{b}"] = timed(
+                    lambda: self.search_arrays(q, k=k, exact=True))
+            if on("quantized", self._quantized is not None):
+                timings[f"quantized_b{b}"] = timed(
+                    lambda: self.search_quantized_arrays(q, k=k))
+            if on("ann", self._ann is not None):
+                timings[f"ann_b{b}"] = timed(
+                    lambda: self.search_arrays(q, k=k, exact=False))
+            b <<= 1
+        return timings
 
     def _ids_object_array(self) -> np.ndarray:
         """``_row_to_id`` as an object ndarray, memoized per version."""
@@ -628,10 +754,127 @@ class Collection:
                         f"{type(self._ann).__name__} has no parameter {key!r}")
                 setattr(self._ann, key, int(value))
 
-    def optimize(self, *args, **kwargs):
-        raise _not_ported("optimize",
-                          "cost model and optimize() (ROADMAP queue A "
-                          "item 11)")
+    def optimize(self, target_recall: float = 0.95, k: int = 10,
+                 sample_queries: int = 32, build: bool = True,
+                 install: bool = True, serving_batch: int = 256) -> dict:
+        """Pick the cheapest serving mode clearing ``target_recall`` on
+        sampled self-queries and install it as the default for
+        ``search()`` / ``search_batch()`` (explicit ``exact=`` and
+        ``search_quantized`` calls always override).
+
+        Candidates: the exact scan (recall 1.0 by construction), the
+        quantized two-stage scan (built with its auto-tune if absent and
+        ``build=True``) and an IVF / IVF-PQ index already built.  Recall
+        is measured against the exact f32 scan.  Each mode gets a roofline
+        estimate (``core/costmodel.py``, amortized over ``serving_batch``);
+        on the card every candidate, warm from the recall pass, is also
+        timed once between two ``torch.cuda.synchronize()`` calls, and the
+        measured time ranks.  On the CPU the model ranks.
+
+        Returns ``{mode: {recall, bytes_per_query, cost_us_model,
+        cost_us_measured (card only), eligible}}`` plus ``installed``."""
+        from . import costmodel as cm
+
+        def recall_at_k(rows, oracle):
+            return float(np.mean([
+                len(set(a.tolist()) & set(e.tolist())) / max(len(e), 1)
+                for a, e in zip(np.asarray(rows), np.asarray(oracle))]))
+
+        dtype_bytes = {"float32": 4, "bfloat16": 2, "float16": 2}
+        with self._lock:
+            qs = self._sample_live_queries(sample_queries)
+            report: Dict[str, dict] = {}
+            runners: Dict[str, object] = {}
+            n = max(self._store.n_valid, 1)
+            d = self.config.dimensions
+            store_b = dtype_bytes.get(self.config.storage_dtype, 4)
+            compute_dtype = self.config.compute_dtype
+            exact_mc = cm.exact_cost(n, d, store_b, compute_dtype,
+                                     serving_batch)
+            report["exact"] = {"recall": 1.0,
+                               "bytes_per_query": float(n * d * store_b),
+                               "cost_us_model": exact_mc.cost_us,
+                               "eligible": True}
+            if qs is None:
+                if install:
+                    self._serving_mode = "exact"
+                report["installed"] = "exact" if install else None
+                return report
+            _, oracle = self._store.search(
+                qs, k, self.config.metric, compute_dtype="float32")
+            runners["exact"] = lambda: self._store.search(
+                qs, k, self.config.metric, compute_dtype=compute_dtype)
+
+            if (self._quantized is None and build
+                    and n >= self._AUTOTUNE_MIN_ROWS):
+                self.enable_quantized_scan("int8", tune_target=target_recall)
+            if self._quantized is not None:
+                _, rows = self._quantized_rows(qs, k, None, None)
+                rec = recall_at_k(rows, oracle)
+                kind = self._quantized.kind
+                code_b = {"int8": d, "int4": (d + 1) // 2,
+                          "binary": d // 8,
+                          "pq": int(self._quantized.codes.shape[-1])}
+                rr = self._quantized.default_rerank
+                cb = code_b.get(kind, d)
+                qmc = cm.quantized_cost(
+                    n, d, kind, cb, store_b, rr * k, serving_batch,
+                    pq_k=getattr(self._quantized.quantizer, "k", 16))
+                report["quantized"] = {
+                    "recall": round(rec, 4),
+                    "bytes_per_query": float(n * cb + rr * k * d * store_b),
+                    "cost_us_model": qmc.cost_us,
+                    "eligible": rec >= target_recall}
+                runners["quantized"] = lambda: self._quantized_rows(
+                    qs, k, None, None)
+            if self._ann is not None and not self._ann.stale:
+                _, rows = self._ann.search(qs, k)
+                rec = recall_at_k(rows, oracle)
+                nlist = self._ann.stats()["nlist"]
+                pq_k = 0
+                if hasattr(self._ann, "codes"):   # IVF-PQ: M bytes a row
+                    cell_b = int(self._ann.codes.shape[2])
+                    pq_k = int(self._ann.codebooks.shape[1])
+                elif self._ann.quantizer is not None:   # int8 cells
+                    cell_b = d
+                else:
+                    cell_b = store_b * d
+                nprobe = self._ann.nprobe
+                frac = min(1.0, nprobe / max(nlist, 1))
+                over = int(self._ann.overflow_rows.shape[0])
+                rr = self._ann.rerank
+                amc = cm.ivf_cost(n, d, cell_b, nlist, nprobe, over,
+                                  store_b, rr * k, serving_batch, pq_k=pq_k)
+                report["ann"] = {
+                    "recall": round(rec, 4),
+                    "bytes_per_query": float((frac * n + over) * cell_b
+                                             + rr * k * d * store_b),
+                    "cost_us_model": amc.cost_us,
+                    "eligible": rec >= target_recall}
+                runners["ann"] = lambda: self._ann.search(qs, k)
+
+            if self.device.type == "cuda":
+                # measured time ranks: every candidate is warm from its
+                # recall pass, and each returns host arrays
+                import time as _time
+                for mode, run in runners.items():
+                    torch.cuda.synchronize(self.device)
+                    t0 = _time.perf_counter()
+                    run()
+                    torch.cuda.synchronize(self.device)
+                    report[mode]["cost_us_measured"] = \
+                        1e6 * (_time.perf_counter() - t0) / max(len(qs), 1)
+
+            def _rank(m: str) -> float:
+                v = report[m]
+                return v.get("cost_us_measured", v["cost_us_model"])
+
+            eligible = [m for m, v in report.items() if v.get("eligible")]
+            best = min(eligible, key=_rank)
+            if install:
+                self._serving_mode = best
+            report["installed"] = best if install else None
+            return report
 
     def enable_quantized_scan(self, kind: str = "int8",
                               tune: Optional[bool] = None,
@@ -802,6 +1045,36 @@ class Collection:
             self.base_path.mkdir(parents=True, exist_ok=True)
             sections, meta = self.export_sections()
             save_container(self.base_path / STORE_FILE, sections, meta=meta)
+            if self._wal is not None:
+                self._wal.truncate()  # the snapshot now covers the log
+
+    def _replay_wal(self) -> None:
+        """Re-apply logged mutations on top of the loaded snapshot.
+
+        Replay is forgiving (inserts upsert, deletes and updates of missing
+        ids do nothing), so a crash between the snapshot's rename and the
+        log's truncation, which leaves records the snapshot covers in the
+        log, converges instead of failing on duplicates.  The log is
+        swapped out meanwhile, so replay does not log again."""
+        from ..persist import wal as W
+        wal, self._wal = self._wal, None
+        try:
+            for op, obj, vecs in wal.replay():
+                if op == W.OP_INSERT:
+                    if not obj["ids"]:
+                        continue
+                    dup = [i for i in obj["ids"] if i in self._id_to_row]
+                    if dup:
+                        self.delete_batch(dup)
+                    self.insert_batch(vecs, obj["ids"], obj["metadatas"])
+                elif op == W.OP_DELETE:
+                    self.delete_batch(
+                        [i for i in obj["ids"] if i in self._id_to_row])
+                elif op == W.OP_UPDATE_META:
+                    self.update_metadata(obj["id"], obj["metadata"],
+                                         obj.get("merge", True))
+        finally:
+            self._wal = wal
 
     def _load(self) -> None:
         from ..state import restore_into

@@ -125,23 +125,66 @@ class DeviceVectorStore:
     # -- search -----------------------------------------------------------
     def search(self, queries, k: int, metric,
                extra_mask: Optional[np.ndarray] = None,
-               compute_dtype: str = "float32"
+               compute_dtype: str = "float32",
+               return_device: bool = False,
+               wire_dtype: Optional[str] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Masked top-k over the live rows.  queries: (B, D) numpy or
         tensor.  Selection is always exact: CUDA has no approximate top-k,
         so ``CollectionConfig.topk`` (kept for the file format) selects
         nothing here — ``"auto"`` is exact off the TPU in the JAX package
-        too.  Returns (dists (B, k'), rows (B, k')) with
-        k' = min(k, capacity) as numpy (f32, int32)."""
-        q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
-        if compute_dtype == "bfloat16":
-            q = q.bfloat16()  # the kernel rounds to bf16 anyway
+        too.
+
+        wire_dtype: how host queries travel to the device.  None ships
+        f32, or bf16 demoted on the host when compute is bf16 (the kernel
+        rounds to bf16 anyway); ``"int8"`` ships codes with a symmetric
+        per-batch scale, dequantised on the device with the JAX package's
+        arithmetic (a small, measured ordering cost; opt-in for throughput
+        callers).  Host queries go through pinned memory, so the upload
+        does not hold the host.
+
+        Returns (dists (B, k'), rows (B, k')) with k' = min(k, capacity):
+        numpy (f32, int32), or with ``return_device`` the device tensors
+        (f32, int64), for a caller that pipelines and syncs itself."""
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(self.device, torch.float32)
+            if compute_dtype == "bfloat16":
+                q = q.bfloat16()
+        else:
+            q = self._upload_queries(
+                np.ascontiguousarray(queries, dtype=np.float32),
+                "bfloat16" if wire_dtype is None
+                and compute_dtype == "bfloat16" else wire_dtype)
         mask = self._combined_mask(extra_mask)
         kk = min(k, self.capacity)
         vals, rows = K.search_kernel(
             q, self.vectors, self.sq, self.rinv, mask, metric=metric, k=kk,
             compute_dtype=compute_dtype)
+        if return_device:
+            return vals, rows
         return vals.cpu().numpy(), rows.to(torch.int32).cpu().numpy()
+
+    def _upload_queries(self, qh: np.ndarray, wire: Optional[str]
+                        ) -> torch.Tensor:
+        """Host queries -> device tensor over the chosen wire encoding."""
+        scale = None
+        if wire == "int8":
+            # symmetric per-batch scale: codes = round(q / s), s putting the
+            # largest magnitude on +-127
+            scale = float(np.abs(qh).max(initial=0.0)) / 127.0 or 1.0
+            t = torch.from_numpy(np.clip(np.rint(qh / scale), -127, 127)
+                                 .astype(np.int8))
+        else:
+            t = torch.from_numpy(qh)
+            if wire == "bfloat16":
+                t = t.bfloat16()   # demoted on the host: half the bytes
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        q = t.to(self.device, non_blocking=True)
+        if scale is not None:
+            q = q.float() * torch.tensor(scale, dtype=torch.float32,
+                                         device=self.device)
+        return q
 
     def _combined_mask(self, extra_mask: Optional[np.ndarray]):
         """valid AND extra_mask as a device bool tensor, memoized on the

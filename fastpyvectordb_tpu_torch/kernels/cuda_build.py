@@ -109,3 +109,10 @@ def build_all(*sources: CudaSource) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def all_sources() -> List[CudaSource]:
+    """Every hand-written source of the package, for ``build_all``."""
+    from . import hamming_kernels, ivf_kernels, quant_kernels, s8_kernels
+    return [quant_kernels.SOURCE, ivf_kernels.SOURCE, ivf_kernels.SOURCE_PQ,
+            hamming_kernels.SOURCE, s8_kernels.SOURCE]

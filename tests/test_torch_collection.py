@@ -261,19 +261,21 @@ def test_unported_paths_raise_and_keep_ann_data(tmp_path):
         T.VectorDB(tmp_path / "j", device="cpu")
     tc = T.VectorDB(None, device="cpu").create_collection("x", dimensions=4)
     tc.insert(np.ones(4, np.float32), "a")
-    for call in (lambda: tc.build_ann(kind="graph"), tc.optimize, tc.prewarm,
-                 tc.search_arrays_stream, tc.as_sharded_searcher):
+    for call in (lambda: tc.build_ann(kind="graph"), tc.as_sharded_searcher):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.VectorDB(tmp_path / "w", device="cpu").create_collection(
-            "w", dimensions=4, durability="wal")
-    # a JAX-written write-ahead log is refused, not silently skipped
+    # the WAL, optimize, prewarm and the stream are ported: none raises
+    assert tc.optimize()["installed"] == "exact"
+    assert set(tc.prewarm(max_batch=2)) == {"exact_b1", "exact_b2"}
+    assert len(list(tc.search_arrays_stream([np.ones((1, 4), np.float32)],
+                                            k=1))) == 1
+    T.VectorDB(tmp_path / "w", device="cpu").create_collection(
+        "w", dimensions=4, durability="wal")
+    # a JAX-written write-ahead log is replayed, not skipped
     jw = J.VectorDB(tmp_path / "jw").create_collection(
         "w", dimensions=4, durability="wal")
     jw.insert(np.ones(4, np.float32), "a")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.VectorDB(tmp_path / "jw", device="cpu")
+    assert T.VectorDB(tmp_path / "jw", device="cpu")["w"].all_ids() == ["a"]
 
 
 def _tombstoned_pair():
@@ -396,6 +398,10 @@ def test_port_never_imports_jax(tmp_path):
         import fastpyvectordb_tpu_torch.ann.ivfpq  # binary, pq, all kernels
         import fastpyvectordb_tpu_torch.kernels.s8_kernels
         import fastpyvectordb_tpu_torch.persist.format
+        import fastpyvectordb_tpu_torch.persist.wal
+        import fastpyvectordb_tpu_torch.core.costmodel
+        from fastpyvectordb_tpu_torch.core.outofcore import (
+            QuantizedOutOfCoreSearcher)
         from fastpyvectordb_tpu_torch.state import collection_from_sections
         db = T.VectorDB(sys.argv[1], device="cpu")
         c = db.create_collection("c", dimensions=8)
@@ -405,6 +411,13 @@ def test_port_never_imports_jax(tmp_path):
                                   )[0][0].id == "a"
         db.save()
         assert T.VectorDB(sys.argv[1], device="cpu")["c"].count() == 8
+        w = T.VectorDB(sys.argv[1] + "/w", device="cpu").create_collection(
+            "w", dimensions=8, durability="wal")
+        w.insert_batch(np.eye(8, dtype=np.float32), list("abcdefgh"))
+        assert T.VectorDB(sys.argv[1] + "/w", device="cpu")["w"].count() == 8
+        ooc = QuantizedOutOfCoreSearcher(np.eye(8, dtype=np.float32),
+                                         codec="int8", device="cpu")
+        assert ooc.search(np.eye(8, dtype=np.float32)[3], k=1)[1][0, 0] == 3
         c.enable_quantized_scan("int8", tune=False)
         assert c.search_quantized(np.eye(8, dtype=np.float32)[:1], k=1
                                   )[0][0].id == "a"
