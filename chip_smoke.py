@@ -21,8 +21,16 @@ defaults, grouped and per-query, filtered); the pq scan kind once on a
 ``BigCollection`` (host vectors, device codes): the int8 codec on all 1M
 rows, inserted in batches so that its buffers grow, searched, filtered,
 tombstoned, saved and reloaded, and the int4 and binary codecs on the first
-262,144 rows.  Each path's kernel launch counts are zeroed just before it
-and read just after.
+262,144 rows.  The serving phase starts the port's REST / WebSocket server
+(``create_app(device="cuda")``) over the saved 1M collection and drives it
+over HTTP as ``benchmarks/server_load.py`` drives the JAX server:
+sequential and concurrent singles (JSON exact; msgpack quantized, which the
+batcher coalesces into waves of one ``s8_topc`` launch each), /search/batch
+at B=1024, writes with a WebSocket change feed, 10,000 texts through the
+transformer embedder on the card, a graph past the native traversal
+threshold, and two shard servers behind the router; every served result is
+held against the direct ``Collection`` call.  Each path's kernel launch
+counts are zeroed just before it and read just after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
 passed.  The last lines are a JSON object of per-kernel numbers (launches
@@ -735,6 +743,7 @@ def phase_main_path(tmpdir: Path):
     queries, tune_queries, timing_batches = qsets[0], qsets[1], qsets[2:]
     stream_batches = [clustered(gen, BATCH, centers, 0.5).cpu().numpy()
                       for _ in range(STREAM_BATCHES)]
+    server_queries = clustered(gen, SRV_QUERIES, centers, 0.5).cpu().numpy()
     block = corpus[:BLOCK_ROWS].clone()
     host = corpus.cpu().numpy()
     del corpus
@@ -924,7 +933,10 @@ def phase_main_path(tmpdir: Path):
         f"before (rerank {cc2._quantized.default_rerank}), IVF-PQ ids "
         f"identical (nprobe {cc2._ann.nprobe}, rerank {cc2._ann.rerank})")
     phase_optimize(col2, tune_queries, results)
+    col2.save()   # with the int8 scan tuned on held-out queries
     del col2, cc2, db2
+    torch.cuda.empty_cache()
+    phase_server(tmpdir, host, server_queries, results)
     torch.cuda.empty_cache()
     phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
                         timing_batches, truth, results)
@@ -2163,6 +2175,701 @@ def phase_outofcore(tmpdir, host, queries, tune_queries, timing_batches,
         mod.LAUNCHES.update({key: 0 for key in mod.LAUNCHES})
     del mm
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the serving layer: the port's REST / WebSocket server on the card
+# ---------------------------------------------------------------------------
+SERVING_PACKAGES = ("aiohttp", "pydantic", "httpx", "msgpack")
+SRV_SEQ, SRV_CONC, SRV_C = 256, 2048, 64     # benchmarks/server_load.py's mix
+SRV_QUERIES = SRV_SEQ + 2 * SRV_CONC + QPS_BATCHES * BATCH
+SRV_WRITES, SRV_WRITE_BATCH = 4096, 256
+SRV_TEXTS, TEXT_DIMS = 10_000, 384
+GRAPH_NODES, GRAPH_EDGES = 5_000, 12_000     # past the native threshold
+SHARD_ROWS = 131_072                         # rows a shard (a cut of depth)
+MSGPACK = {"Content-Type": "application/msgpack"}
+
+
+class AppThread:
+    """An aiohttp application served on 127.0.0.1 by a thread with its own
+    event loop (as ``tests/test_server.py`` runs it)."""
+
+    def __init__(self, factory):
+        import asyncio
+        import socket
+        import threading
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.loop = asyncio.new_event_loop()
+        self.error = None
+        ready = threading.Event()
+
+        def run():
+            from aiohttp import web
+            asyncio.set_event_loop(self.loop)
+            try:
+                self.app = factory()
+                self.runner = web.AppRunner(self.app)
+                self.loop.run_until_complete(self.runner.setup())
+                self.loop.run_until_complete(web.TCPSite(
+                    self.runner, "127.0.0.1", self.port).start())
+            except BaseException as e:  # reported by the starting thread
+                self.error = e
+                ready.set()
+                return
+            ready.set()
+            self.loop.run_forever()
+            self.loop.run_until_complete(self.runner.cleanup())
+            self.loop.close()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not ready.wait(300) or self.error is not None:
+            raise RuntimeError(f"server failed to start: {self.error!r}")
+
+    def stop(self):
+        """Stop the loop; the thread then runs the app's shutdown (which
+        saves its databases) and exits."""
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(300)
+        if self.thread.is_alive():
+            raise RuntimeError("server thread did not stop")
+
+
+def _pct(lat, p) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(lat) * 1e3, p))
+
+
+def drive_here(base: str, requests, concurrency: int):
+    """POST each (path, kwargs) request from this process: ``concurrency``
+    workers, each sending its share serially over one aiohttp session.
+    Returns the responses in request order as (status, content type, body
+    bytes), the per-request latencies (s) and the wall time (s)."""
+    import asyncio
+    import aiohttp
+
+    async def run():
+        out = [None] * len(requests)
+        lat = [0.0] * len(requests)
+        conn = aiohttp.TCPConnector(limit=concurrency)
+        timeout = aiohttp.ClientTimeout(total=600)
+        async with aiohttp.ClientSession(base, connector=conn,
+                                         timeout=timeout) as s:
+            async def worker(w):
+                for i in range(w, len(requests), concurrency):
+                    path, kw = requests[i]
+                    t0 = time.perf_counter()
+                    async with s.post(path, **kw) as r:
+                        body = await r.read()
+                    lat[i] = time.perf_counter() - t0
+                    out[i] = (r.status, r.content_type, body)
+            t0 = time.perf_counter()
+            await asyncio.gather(*[worker(w) for w in range(concurrency)])
+            return out, lat, time.perf_counter() - t0
+    return asyncio.run(run())
+
+
+_CLIENT = """
+import importlib.util, pickle, sys
+spec = importlib.util.spec_from_file_location("chip_smoke_client", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+with open(sys.argv[2], "rb") as f:
+    args = pickle.load(f)
+with open(sys.argv[3], "wb") as f:
+    pickle.dump(mod.drive_here(*args), f)
+"""
+
+
+def drive(base: str, requests, concurrency: int):
+    """``drive_here`` in a child process: the load generator gets its own
+    interpreter, as a service's clients would, instead of taking turns
+    with the server for its interpreter lock
+    (``tools/serving_probe.py`` measures both)."""
+    import pickle
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_client_") as d:
+        inp, out = Path(d) / "in.pkl", Path(d) / "out.pkl"
+        with open(inp, "wb") as f:
+            pickle.dump((base, requests, concurrency), f)
+        subprocess.run([sys.executable, "-c", _CLIENT,
+                        str(Path(__file__).resolve()), str(inp), str(out)],
+                       check=True, timeout=900)
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+
+def _ok(resps, what: str):
+    bad = [(st, body[:300]) for st, _, body in resps if st >= 300]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} failed responses, first "
+                             f"{bad[0]}")
+
+
+def _rows_of(ids) -> "np.ndarray":
+    import numpy as np
+    return np.array([[int(i[1:]) if i is not None else -1 for i in row]
+                     for row in ids], dtype=np.int64)
+
+
+def _decode_json_hits(resps):
+    """JSON single/batch search responses -> (scores, rows) grids."""
+    import numpy as np
+    sc, ids = [], []
+    for _, _, body in resps:
+        res = json.loads(body)["results"]
+        for hits in (res if res and isinstance(res[0], list) else [res]):
+            sc.append([h["score"] for h in hits])
+            ids.append([h["id"] for h in hits])
+    return np.asarray(sc, np.float32), _rows_of(ids)
+
+
+def _decode_msgpack_hits(resps):
+    import msgpack
+    import numpy as np
+    sc, ids = [], []
+    for _, _, body in resps:
+        b = msgpack.unpackb(body, raw=False)
+        rows = b["ids"] if b["ids"] and isinstance(b["ids"][0], list) \
+            else [b["ids"]]
+        sc.append(np.frombuffer(b["scores"], "<f4").reshape(len(rows), -1))
+        ids.extend(rows)
+    return np.concatenate(sc), _rows_of(ids)
+
+
+def _check_same(label, got, want):
+    import numpy as np
+    (gd, gr), (wd, wr) = got, want
+    wr = np.asarray(wr)
+    if gd.shape != wd.shape or not same_up_to_ties(gd, gr, wd, wr):
+        raise AssertionError(f"server {label}: results differ from the "
+                             "direct Collection call")
+
+
+def _wave_counter(col, name: str, waves: list):
+    """Record the batch size of every call of ``col.<name>`` (the
+    batcher's waves); the wrapper is an instance attribute, so the
+    collection's own method runs unchanged."""
+    orig = getattr(col, name)
+
+    def counted(queries, *a, **kw):
+        waves.append(len(queries))
+        return orig(queries, *a, **kw)
+    setattr(col, name, counted)
+    return orig
+
+
+def _serving_packages():
+    import importlib
+    missing = []
+    for name in SERVING_PACKAGES:
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    return missing
+
+
+def phase_server(tmpdir: Path, host, queries_srv, results):
+    """The port's server (``create_app(device="cuda")``, the ``jax``
+    transformer embedder, a graph, the full tier) in a thread on
+    127.0.0.1 over the saved 1M x 768 collection (its IVF index and the
+    int8 scan tuned on held-out queries), driven over HTTP as
+    ``benchmarks/server_load.py`` drives the JAX server: sequential and
+    concurrent singles (JSON exact, msgpack quantized), /search/batch at
+    B=1024 (exact, quantized, filtered; msgpack and JSON), writes with a
+    WebSocket change feed, texts through the embedder on the card, the
+    graph past the native threshold, and two shards behind the router.
+    Every served result is held against the direct ``Collection`` call."""
+    import shutil
+    missing = _serving_packages()
+    log(f"[server] serving packages: "
+        f"{', '.join(p + (' MISSING' if p in missing else ' ok') for p in SERVING_PACKAGES)}; "
+        f"g++ {shutil.which('g++') or 'not found'}")
+    if missing:
+        raise AssertionError(f"server: the card's Python lacks {missing}")
+    from fastpyvectordb_tpu_torch.server.app import create_app
+
+    card = nvidia_smi_line()
+    serve = tmpdir / "serve"
+    serve.mkdir()
+    shutil.move(str(tmpdir / "main"), str(serve / "main"))
+    t0 = time.perf_counter()
+    srv = AppThread(lambda: create_app(
+        db_path=str(serve), device="cuda", embedding_provider="jax",
+        graph_path=str(tmpdir / "serve_graph"), full=True))
+    col = srv.app["state"]["db"]["main"]
+    if col.device.type != "cuda" or col._quantized is None \
+            or col._quantized.kind != "int8":
+        raise AssertionError("server: the 1M collection is not on the card "
+                             "with its int8 scan")
+    log(f"[server] create_app(device='cuda') over the saved 1M x {DIMS} "
+        f"collection: started in {time.perf_counter() - t0:.1f} s "
+        f"(int8 rerank {col._quantized.default_rerank}); {card}")
+    try:
+        _server_searches(srv, col, queries_srv, card, results)
+        _server_writes(srv, col, card, results)
+        _server_texts(srv, card, results)
+        _server_graph(srv, card, results)
+    finally:
+        # dropping the big collection first keeps the shutdown's save small
+        import httpx
+        httpx.delete(srv.url + "/collections/main", timeout=300)
+        srv.stop()
+    _server_router(tmpdir, host, queries_srv[-BATCH:], card, results)
+
+
+def _server_searches(srv, col, qs, card, results):
+    import msgpack
+    import numpy as np
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    seq = qs[:SRV_SEQ]
+    conc = qs[SRV_SEQ:SRV_SEQ + SRV_CONC]
+    qconc = qs[SRV_SEQ + SRV_CONC:SRV_SEQ + 2 * SRV_CONC]
+    batches = [qs[SRV_SEQ + 2 * SRV_CONC + i * BATCH:
+                  SRV_SEQ + 2 * SRV_CONC + (i + 1) * BATCH]
+               for i in range(QPS_BATCHES)]
+    path = "/collections/main/search"
+
+    def json_single(q):
+        return (path, {"json": {"vector": q.tolist(), "k": K,
+                                "mode": "exact"}})
+
+    def mp_body(**obj):
+        return {"data": msgpack.packb(obj, use_bin_type=True),
+                "headers": MSGPACK}
+
+    def direct_qps(fn, chunks) -> float:
+        t0 = time.perf_counter()
+        for c in chunks:
+            fn(c)
+        return sum(len(c) for c in chunks) / (time.perf_counter() - t0)
+
+    def report(label, n, lat, wall, direct, extra="", launches=None):
+        qps = n / wall
+        results[f"server_{label}"] = {
+            "gated": False, "qps": qps, "p50_ms": _pct(lat, 50),
+            "p99_ms": _pct(lat, 99), "direct_qps": direct, "card": card,
+            **({"launches": launches} if launches else {})}
+        log(f"[server] {label}: {n} requests, QPS {qps:.1f}, client p50 "
+            f"{_pct(lat, 50):.2f} ms p99 {_pct(lat, 99):.2f} ms; the "
+            f"direct Collection call of the same queries {direct:.1f} QPS"
+            f"{extra}; {card}")
+    # the batcher's waves: JSON singles run search_batch, msgpack singles
+    # search_arrays / search_quantized_arrays
+    waves = []
+    orig_batch = _wave_counter(col, "search_batch", waves)
+    orig_arrays = _wave_counter(col, "search_arrays", waves)
+    orig_quant = _wave_counter(col, "search_quantized_arrays", waves)
+
+    # 1. sequential JSON singles, exact
+    resps, lat, wall = drive(srv.url, [json_single(q) for q in seq], 1)
+    _ok(resps, "sequential singles")
+    _check_same("sequential singles", _decode_json_hits(resps),
+                _direct(orig_arrays(seq, k=K, exact=True)))
+    report("json_singles_seq", SRV_SEQ, lat, wall, direct_qps(
+        lambda c: orig_arrays(c, k=K, exact=True),
+        [seq[i:i + 1] for i in range(SRV_SEQ)]))
+
+    # 2. concurrent JSON singles, exact, through the batcher's waves
+    waves.clear()
+    resps, lat, wall = drive(srv.url, [json_single(q) for q in conc], SRV_C)
+    _ok(resps, "concurrent singles")
+    mean_wave = float(np.mean(waves))
+    _check_same("concurrent singles", _decode_json_hits(resps),
+                _direct(orig_arrays(conc, k=K, exact=True)))
+    w = max(int(round(mean_wave)), 1)
+    report(f"json_singles_c{SRV_C}", SRV_CONC, lat, wall, direct_qps(
+        lambda c: orig_arrays(c, k=K, exact=True),
+        [conc[i:i + w] for i in range(0, SRV_CONC, w)]),
+        f"; {len(waves)} waves, mean wave {mean_wave:.1f}")
+    results[f"server_json_singles_c{SRV_C}"]["mean_wave"] = mean_wave
+
+    # 3. concurrent msgpack singles, quantized: one s8_topc launch a wave
+    waves.clear()
+    s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
+    resps, lat, wall = drive(srv.url, [
+        (path, mp_body(vector=q.tobytes(), k=K, mode="quantized"))
+        for q in qconc], SRV_C)
+    launches = dict(s8.LAUNCHES)
+    _ok(resps, "quantized singles")
+    got = _decode_msgpack_hits(resps)
+    if launches["s8_topc"] != len(waves) or launches["s8_scores"] \
+            or launches["s8_topc_wide"]:
+        raise AssertionError(f"server quantized singles: {len(waves)} waves "
+                             f"but launches {launches}")
+    _check_same("quantized singles", got,
+                _direct(orig_quant(qconc, k=K)))
+    exact = _direct(orig_arrays(qconc, k=K, exact=True))
+    rec = recall_at_k(got[1], exact[1])
+    if rec < RECALL_GATE:
+        raise AssertionError(f"server quantized singles: recall@10 {rec}")
+    mean_q = float(np.mean(waves))
+    w = max(int(round(mean_q)), 1)
+    report(f"msgpack_quantized_singles_c{SRV_C}", SRV_CONC, lat, wall,
+           direct_qps(lambda c: orig_quant(c, k=K),
+                      [qconc[i:i + w] for i in range(0, SRV_CONC, w)]),
+           f"; {len(waves)} waves, mean wave {mean_q:.1f}, s8_topc "
+           f"launches {launches['s8_topc']} (one a wave), recall@10 "
+           f"{rec:.4f}", launches={"s8_topc": launches["s8_topc"]})
+    results[f"server_msgpack_quantized_singles_c{SRV_C}"].update(
+        mean_wave=mean_q, recall=rec, waves=len(waves))
+
+    # 4-5. /search/batch at B=1024, msgpack (and JSON once), exact and
+    # quantized, without and with the cat == 3 filter
+    for where in (None, {"cat": 3}):
+        tag = "" if where is None else "_cat3"
+        extra = {} if where is None else {"where": where}
+        for mode in ("exact", "quantized"):
+            s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
+            resps, lat, wall = drive(srv.url, [
+                ("/collections/main/search/batch",
+                 mp_body(vectors=b.tobytes(), k=K, mode=mode, **extra))
+                for b in batches], 1)
+            launches = dict(s8.LAUNCHES)
+            _ok(resps, f"batch {mode}{tag}")
+            got = _decode_msgpack_hits(resps)
+            allq = np.concatenate(batches)
+            filt = None
+            if where is not None:
+                from fastpyvectordb_tpu_torch import Filter
+                filt = Filter.eq("cat", 3)
+                if not (got[1] % 10 == 3).all():
+                    raise AssertionError("server filtered batch: a hit "
+                                         "misses the filter")
+            if mode == "exact":
+                def fn(c, filt=filt):
+                    return orig_arrays(c, k=K, filter=filt, exact=True)
+            else:
+                def fn(c, filt=filt):
+                    return orig_quant(c, k=K, filter=filt)
+                if launches["s8_topc"] != QPS_BATCHES \
+                        or launches["s8_scores"]:
+                    raise AssertionError(f"server batch quantized{tag}: "
+                                         f"launches {launches}")
+            want = [_direct(fn(b)) for b in batches]
+            _check_same(f"batch {mode}{tag}", got,
+                        (np.concatenate([w_[0] for w_ in want]),
+                         np.concatenate([w_[1] for w_ in want])))
+            note, counted = "", None
+            if mode == "quantized":
+                ex = _direct(orig_arrays(allq, k=K, filter=filt, exact=True))
+                rec = recall_at_k(got[1], ex[1])
+                if rec < RECALL_GATE:
+                    raise AssertionError(f"server batch quantized{tag}: "
+                                         f"recall@10 {rec}")
+                note = f"; s8_topc launches {launches['s8_topc']}, " \
+                       f"recall@10 {rec:.4f}"
+                counted = {"s8_topc": launches["s8_topc"]}
+            report(f"msgpack_batch{BATCH}_{mode}{tag}",
+                   QPS_BATCHES * BATCH, lat, wall,
+                   direct_qps(fn, batches), note, counted)
+            # the same batch over JSON once: the same hits as msgpack
+            jr, jlat, jwall = drive(srv.url, [(
+                "/collections/main/search/batch",
+                {"json": {"vectors": batches[0].tolist(), "k": K,
+                          "mode": mode, **extra}})], 1)
+            _ok(jr, f"JSON batch {mode}{tag}")
+            jd, jrows = _decode_json_hits(jr)
+            md, mrows = got[0][:BATCH], got[1][:BATCH]
+            if not same_up_to_ties(jd, jrows, md, mrows):
+                raise AssertionError(f"server batch {mode}{tag}: JSON and "
+                                     "msgpack differ")
+            log(f"[server] json_batch{BATCH}_{mode}{tag}: one request "
+                f"{jwall * 1e3:.1f} ms ({BATCH / jwall:.1f} QPS), equal to "
+                f"msgpack's hits")
+            results[f"server_msgpack_batch{BATCH}_{mode}{tag}"][
+                "json_qps"] = BATCH / jwall
+    col.search_batch = orig_batch
+    col.search_arrays = orig_arrays
+    col.search_quantized_arrays = orig_quant
+
+
+def _direct(triple):
+    """(ids, scores, rows) of a direct call -> (scores, numeric id rows)."""
+    ids, scores, _ = triple
+    return scores, _rows_of(ids)
+
+
+def _server_writes(srv, col, card, results):
+    """A WebSocket subscriber on the collection, then SRV_WRITES rows
+    through /vectors/batch (msgpack): every insert event arrives, and every
+    acknowledged row is found by its own vector."""
+    import asyncio
+    import aiohttp
+    import msgpack
+    import numpy as np
+    rng = np.random.default_rng(21)
+    rows = rng.standard_normal((SRV_WRITES, DIMS)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    ids = [f"w{i}" for i in range(SRV_WRITES)]
+
+    async def run():
+        events, acked, lat = [], [], []
+        async with aiohttp.ClientSession(srv.url) as s:
+            async with s.ws_connect("/ws/main") as ws:
+                await ws.send_str(json.dumps({
+                    "action": "subscribe", "collection": "main",
+                    "event_types": ["batch_insert"]}))
+                while not json.loads((await ws.receive(timeout=60)).data
+                                     ).get("subscribed"):
+                    pass
+                t0 = time.perf_counter()
+                for i in range(0, SRV_WRITES, SRV_WRITE_BATCH):
+                    t1 = time.perf_counter()
+                    async with s.post(
+                            "/collections/main/vectors/batch",
+                            headers=MSGPACK, data=msgpack.packb({
+                                "vectors": rows[i:i + SRV_WRITE_BATCH
+                                                ].tobytes(),
+                                "ids": ids[i:i + SRV_WRITE_BATCH],
+                                "metadatas": [{"cat": 99}] * SRV_WRITE_BATCH},
+                                use_bin_type=True)) as r:
+                        if r.status != 201:
+                            raise AssertionError(f"server write: {r.status} "
+                                                 f"{await r.text()}")
+                        acked += msgpack.unpackb(await r.read())["ids"]
+                    lat.append(time.perf_counter() - t1)
+                wall = time.perf_counter() - t0
+                while sum(e["data"]["count"] for e in events) < len(acked):
+                    msg = await ws.receive(timeout=60)
+                    events.append(json.loads(msg.data))
+        return events, acked, lat, wall
+
+    events, acked, lat, wall = asyncio.run(run())
+    if acked != ids or any(e["type"] != "batch_insert"
+                           or e["collection"] != "main" for e in events) \
+            or len(events) != SRV_WRITES // SRV_WRITE_BATCH:
+        raise AssertionError(f"server writes: {len(acked)} acknowledged, "
+                             f"events {[e['type'] for e in events][:4]}...")
+    resps, _, _ = drive(srv.url, [(
+        "/collections/main/search/batch",
+        {"data": msgpack.packb({"vectors": rows[i:i + BATCH].tobytes(),
+                                "k": 1, "mode": "exact"}, use_bin_type=True),
+         "headers": MSGPACK}) for i in range(0, SRV_WRITES, BATCH)], 1)
+    _ok(resps, "write read-back")
+    found = [row[0] for _, _, body in resps
+             for row in msgpack.unpackb(body, raw=False)["ids"]]
+    if found != ids:
+        miss = sum(a != b for a, b in zip(found, ids))
+        raise AssertionError(f"server writes: {miss} acknowledged rows not "
+                             "found by their own vector")
+    results["server_writes"] = {
+        "gated": False, "rows_per_s": SRV_WRITES / wall,
+        "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+        "events": len(events), "card": card}
+    log(f"[server] writes: {SRV_WRITES} rows in {len(lat)} msgpack batches "
+        f"of {SRV_WRITE_BATCH}, {SRV_WRITES / wall:.1f} rows/s (batch p50 "
+        f"{_pct(lat, 50):.2f} ms p99 {_pct(lat, 99):.2f} ms); "
+        f"{len(events)} batch_insert events over the WebSocket, every "
+        f"acknowledged row found by its own vector; {card}")
+
+
+def _texts(n: int):
+    import numpy as np
+    rng = np.random.default_rng(31)
+    vocab = [f"w{i:04d}" for i in range(2000)] + [
+        "search", "vector", "card", "graph", "server", "query", "the", "a"]
+    return [" ".join(rng.choice(vocab, size=int(rng.integers(5, 40))))
+            for _ in range(n)]
+
+
+def _server_texts(srv, card, results):
+    """SRV_TEXTS texts through /texts (the transformer embedder on the
+    card), text searches, the embedder's texts/s, and its embeddings
+    against the CPU embedder with the same weights."""
+    import numpy as np
+    from fastpyvectordb_tpu_torch.embeddings import TransformerEmbedder
+    texts = _texts(SRV_TEXTS)
+    _ok(drive(srv.url, [("/collections", {"json": {
+        "name": "texts", "dimensions": TEXT_DIMS}})], 1)[0], "texts")
+    t0 = time.perf_counter()
+    resps, lat, wall = drive(srv.url, [(
+        "/collections/texts/texts",
+        {"json": {"text": t, "id": f"t{i}", "metadata": {"i": i}}})
+        for i, t in enumerate(texts)], SRV_C)
+    _ok(resps, "texts")
+    emb = srv.app["state"]["embedder"]
+    if not isinstance(emb, TransformerEmbedder) \
+            or emb.tok.device.type != "cuda":
+        raise AssertionError(f"server texts: embedder {emb!r} is not the "
+                             "transformer on the card")
+    probe = list(range(0, SRV_TEXTS, SRV_TEXTS // 64))
+    sresps, slat, swall = drive(srv.url, [(
+        "/collections/texts/search",
+        {"json": {"text": texts[i], "k": K, "mode": "exact"}})
+        for i in probe], SRV_C)
+    _ok(sresps, "text search")
+    top = [json.loads(b)["results"][0]["id"] for _, _, b in sresps]
+    if top != [f"t{i}" for i in probe]:
+        raise AssertionError("server text search: a text does not find "
+                             "itself first")
+    torch_sync()
+    t1 = time.perf_counter()
+    vecs = emb.embed_batch(texts)
+    emb_s = time.perf_counter() - t1
+    cpu = TransformerEmbedder.from_numpy(emb.params_numpy(),
+                                         n_heads=emb.n_heads, device="cpu")
+    gap = float(np.abs(vecs[:256] - cpu.embed_batch(texts[:256])).max())
+    if gap > 1e-4 or vecs.shape != (SRV_TEXTS, TEXT_DIMS):
+        raise AssertionError(f"embedder: card vs CPU gap {gap:.3g}")
+    results["server_texts"] = {
+        "gated": False, "qps": SRV_TEXTS / wall, "p50_ms": _pct(lat, 50),
+        "p99_ms": _pct(lat, 99), "search_qps": len(probe) / swall,
+        "embedder_texts_per_s": SRV_TEXTS / emb_s, "cpu_gap": gap,
+        "card": card}
+    log(f"[server] texts: {SRV_TEXTS} POST /texts at concurrency {SRV_C} "
+        f"(first one builds the embedder): {SRV_TEXTS / wall:.1f} texts/s, "
+        f"p50 {_pct(lat, 50):.2f} ms p99 {_pct(lat, 99):.2f} ms, "
+        f"{time.perf_counter() - t0:.1f} s in all; text search "
+        f"{len(probe) / swall:.1f} QPS (each text finds itself first); "
+        f"embed_batch on the card {SRV_TEXTS / emb_s:.1f} texts/s; max gap "
+        f"to the CPU embedder with the same weights {gap:.3g}; {card}")
+
+
+def torch_sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _server_graph(srv, card, results):
+    """A graph past NATIVE_TRAVERSAL_THRESHOLD in the server's GraphDB:
+    /graph/traverse, /graph/shortest-path and /graph/query equal the same
+    calls in process with Python traversal."""
+    import numpy as np
+    import fastpyvectordb_tpu_torch.graphdb.graph as gmod
+    from fastpyvectordb_tpu_torch import native
+    g = srv.app["state"]["graph"]
+    rng = np.random.default_rng(41)
+    t0 = time.perf_counter()
+    for i in range(GRAPH_NODES):
+        g.create_node(["Person" if i % 2 else "Paper"],
+                      {"i": i, "age": int(rng.integers(18, 80))},
+                      id=f"g{i}")
+    src = rng.integers(0, GRAPH_NODES, GRAPH_EDGES).tolist()
+    dst = rng.integers(0, GRAPH_NODES, GRAPH_EDGES).tolist()
+    for e, (a, b) in enumerate(zip(src, dst)):
+        g.create_edge(f"g{a}", f"g{b}", "KNOWS" if e % 3 else "CITES",
+                      id=f"ge{e}")
+    build_s = time.perf_counter() - t0
+    starts = [f"g{int(x)}" for x in rng.integers(0, GRAPH_NODES, 8)]
+    pairs = [(f"g{int(a)}", f"g{int(b)}")
+             for a, b in rng.integers(0, GRAPH_NODES, (16, 2))]
+    cypher = ["MATCH (n:Person) WHERE n.age > 75 RETURN n.i",
+              "MATCH (a:Paper)-[:CITES]->(b:Person) WHERE a.age < 20 "
+              "RETURN a.i, b.i",
+              "MATCH (a:Person {i: 7})-[:KNOWS*1..2]->(b) RETURN b.i"]
+    reqs = ([("/graph/traverse", {"json": {"start": s, "max_depth": 3,
+                                           "direction": "out"}})
+             for s in starts]
+            + [("/graph/shortest-path", {"json": {"source": a,
+                                                  "target": b}})
+               for a, b in pairs]
+            + [("/graph/query", {"json": {"query": q}}) for q in cypher])
+    resps, lat, wall = drive(srv.url, reqs, 1)
+    _ok(resps, "graph")
+    used_native = native.graph_available() and bool(g._csr_cache)
+    if native.graph_available() and not used_native:
+        raise AssertionError("graph: the native CSR traversal did not run")
+    bodies = [json.loads(b) for _, _, b in resps]
+    saved = gmod.NATIVE_TRAVERSAL_THRESHOLD
+    gmod.NATIVE_TRAVERSAL_THRESHOLD = float("inf")   # Python traversal
+    try:
+        want_t = [g.traverse(s, 3, None, "out") for s in starts]
+        want_p = [g.shortest_path(a, b) for a, b in pairs]
+        want_q = [g.query(q) for q in cypher]
+    finally:
+        gmod.NATIVE_TRAVERSAL_THRESHOLD = saved
+    got_t = [b["paths"] for b in bodies[:8]]
+    got_p = [b["path"] for b in bodies[8:24]]
+    got_q = [b["rows"] for b in bodies[24:]]
+    if got_t != want_t or got_q != want_q:
+        raise AssertionError("graph: traverse / Cypher differ from the "
+                             "in-process calls")
+    for (a, b), gp, wp in zip(pairs, got_p, want_p):
+        if (gp is None) != (wp is None) or (gp is not None and (
+                len(gp) != len(wp) or gp[0] != a or gp[-1] != b or any(
+                    v not in {n.id for n in g.neighbors(u, "both")}
+                    for u, v in zip(gp, gp[1:])))):
+            raise AssertionError(f"graph: shortest path {a}->{b}: {gp} vs "
+                                 f"{wp}")
+    results["server_graph"] = {
+        "gated": False, "requests": len(reqs), "qps": len(reqs) / wall,
+        "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+        "native": used_native, "card": card}
+    log(f"[server] graph: {GRAPH_NODES} nodes, {GRAPH_EDGES} edges built in "
+        f"{build_s:.1f} s; {len(reqs)} traverse / shortest-path / Cypher "
+        f"requests, p50 {_pct(lat, 50):.2f} ms p99 {_pct(lat, 99):.2f} ms, "
+        f"traversal {'native (graph.cpp)' if used_native else 'Python'}; "
+        f"equal to the in-process calls with Python traversal "
+        f"(shortest paths: same length, valid); {card}")
+
+
+def _server_router(tmpdir: Path, host, batch, card, results):
+    """Two shard servers over SHARD_ROWS rows each and the router in front;
+    B=1024 through the router equals one server over the union."""
+    import httpx
+    import msgpack
+    from fastpyvectordb_tpu_torch.server.app import create_app
+    from fastpyvectordb_tpu_torch.server.router import create_router_app
+    n = 2 * SHARD_ROWS
+    apps = [AppThread(lambda p=p: create_app(
+        db_path=str(tmpdir / p), device="cuda", full=False))
+        for p in ("shard0", "shard1", "solo")]
+    router = AppThread(lambda: create_router_app([a.url for a in apps[:2]]))
+    try:
+        out = {}
+        for name, base in (("router", router.url), ("one", apps[2].url)):
+            with httpx.Client(base_url=base, timeout=600) as c:
+                c.post("/collections", json={
+                    "name": "r", "dimensions": DIMS}).raise_for_status()
+                t0 = time.perf_counter()
+                for s in range(0, n, 16_384):
+                    e = min(s + 16_384, n)
+                    c.post("/collections/r/vectors/batch", headers=MSGPACK,
+                           content=msgpack.packb({
+                               "vectors": host[s:e].tobytes(),
+                               "ids": [f"v{i}" for i in range(s, e)],
+                               "metadatas": [{"cat": i % 10}
+                                             for i in range(s, e)]},
+                               use_bin_type=True)).raise_for_status()
+                ins = time.perf_counter() - t0
+                body = msgpack.packb({"vectors": batch.tobytes(), "k": K,
+                                      "mode": "exact"}, use_bin_type=True)
+                c.post("/collections/r/search/batch", headers=MSGPACK,
+                       content=body).raise_for_status()   # warm
+                t0 = time.perf_counter()
+                r = c.post("/collections/r/search/batch", headers=MSGPACK,
+                           content=body)
+                ms = (time.perf_counter() - t0) * 1e3
+                _ok([(r.status_code, "", r.content)], f"{name} search")
+                out[name] = (_decode_msgpack_hits(
+                    [(r.status_code, "", r.content)]), ms, ins)
+        per = [httpx.get(a.url + "/collections/r", timeout=60).json()["count"]
+               for a in apps[:2]]
+        if sum(per) != n or min(per) == 0:
+            raise AssertionError(f"router: shard counts {per}")
+        (rd, rr), rms, rins = out["router"]
+        (od, orow), oms, oins = out["one"]
+        if not same_up_to_ties(rd, rr, od, orow):
+            raise AssertionError("router: B=1024 differs from one server "
+                                 "over the union")
+        for base in (router.url, apps[2].url):
+            httpx.delete(base + "/collections/r", timeout=300)
+    finally:
+        router.stop()
+        for a in apps:
+            a.stop()
+    results["server_router"] = {
+        "gated": False, "rows": n, "shard_rows": per,
+        "router_batch_ms": rms, "one_server_batch_ms": oms,
+        "router_insert_s": rins, "one_server_insert_s": oins, "card": card}
+    log(f"[server] router: 2 shards ({per} rows) behind the router; B={BATCH} "
+        f"msgpack exact {rms:.1f} ms through the router vs {oms:.1f} ms on "
+        f"one server over the {n} rows, hits equal up to ties; insert "
+        f"{rins:.1f} s vs {oins:.1f} s; {card}")
 
 
 def main() -> int:

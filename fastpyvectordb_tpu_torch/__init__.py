@@ -8,15 +8,26 @@ pipelined ``search_arrays_stream``, ``optimize()`` on an H100 cost model
 and ``prewarm()``; the standalone quantizers; ``BigCollection`` (host
 vectors, device codes) and the streamed out-of-core searchers
 (``core/outofcore.py``: host corpus and host codes, tile by tile through
-pinned buffers and a copy stream) for corpora beyond device memory.  What
-still raises ``NotImplementedError``: the graph ANN kind and
-``as_sharded_searcher``.  Every TPU Pallas kernel of
-the JAX package has a hand-written Hopper counterpart under ``csrc/``
-(``quant_scores.cu``, ``hamming_scores.cu``, ``s8_scores.cu``,
-``grouped_cell_scores.cu``, ``grouped_cell_scores_pq.cu``), built with
-``nvcc`` at first use and wrapped, each beside its plain PyTorch version,
-in ``kernels/``.  Everything runs on ``device="cuda"`` unless the caller
-passes ``device="cpu"``.  This package never imports jax.
+pinned buffers and a copy stream) for corpora beyond device memory.
+
+The serving layer in front of them: the REST / WebSocket server
+(``server/``: app, query batcher, msgpack wire, shard router, metrics;
+``python -m fastpyvectordb_tpu_torch.server``), the change feed
+(``realtime``), the HTTP client (``http_client.VectorDBClient``) and the
+embedded ChromaDB-style client (``api.Client``); the embedders
+(``embeddings``, whose ``TransformerEmbedder`` runs on the card) and the
+property graph with Cypher and native CSR traversal (``graphdb``,
+``native``).  What still raises ``NotImplementedError``: the graph ANN
+kind and ``as_sharded_searcher``; the BM25 hybrid collection is not
+ported yet.
+
+Every TPU Pallas kernel of the JAX package has a hand-written Hopper
+counterpart under ``csrc/`` (``quant_scores.cu``, ``hamming_scores.cu``,
+``s8_scores.cu``, ``grouped_cell_scores.cu``,
+``grouped_cell_scores_pq.cu``), built with ``nvcc`` at first use and
+wrapped, each beside its plain PyTorch version, in ``kernels/``.
+Everything runs on ``device="cuda"`` unless the caller passes
+``device="cpu"``.  This package never imports jax.
 """
 
 from .core.types import (  # noqa: F401
@@ -44,3 +55,17 @@ __all__ = [
     "collection_from_sections",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # Lazy imports for the heavier feature layers, so that importing the
+    # package stays cheap and optional deps (aiohttp, sentence-transformers)
+    # are not touched until used.
+    if name in ("Client", "QueryResult", "GetResult"):
+        from . import api
+        return getattr(api, name)
+    if name in ("get_embedder", "MockEmbedder", "Embedder",
+                "TransformerEmbedder"):
+        from . import embeddings
+        return getattr(embeddings, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

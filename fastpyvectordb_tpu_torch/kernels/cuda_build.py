@@ -8,7 +8,10 @@ headers (``csrc/*.cuh``) and the flags, in
 calls ``CudaSource.load()`` at its first launch, and ``build_all()`` starts
 one ``nvcc`` per source at once and waits for all of them (the start-up
 path of ``chip_smoke.py``).  A failed build raises with the compiler's
-output; nothing falls back.
+output; nothing falls back.  Each source has a lock: any number of threads
+(a server's executor, the batcher's waves, a background rebuild) that need
+a library at once wait for one ``nvcc`` and all get the one loaded
+library.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -51,6 +55,7 @@ class CudaSource:
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._proc: Optional[subprocess.Popen] = None
+        self._lock = threading.Lock()  # guards _proc, _lib and the build
 
     def _so(self) -> Path:
         # the shared headers (csrc/*.cuh) are part of every source
@@ -64,6 +69,10 @@ class CudaSource:
 
     def start(self) -> None:
         """Start ``nvcc`` in the background unless the library is built."""
+        with self._lock:
+            self._start_locked()
+
+    def _start_locked(self) -> None:
         if self._lib is not None or self._proc is not None \
                 or self._so().exists():
             return
@@ -74,9 +83,16 @@ class CudaSource:
 
     def load(self) -> ctypes.CDLL:
         """The loaded library, compiling it first if needed."""
-        if self._lib is not None:
+        lib = self._lib
+        if lib is not None:
+            return lib
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._load_locked()
             return self._lib
-        self.start()
+
+    def _load_locked(self) -> ctypes.CDLL:
+        self._start_locked()
         so = self._so()
         if self._proc is not None:
             out, _ = self._proc.communicate()
@@ -92,7 +108,6 @@ class CudaSource:
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-        self._lib = lib
         return lib
 
 

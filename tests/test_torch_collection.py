@@ -428,6 +428,25 @@ def test_port_never_imports_jax(tmp_path):
         assert T.BigCollection(8, base_path=sys.argv[1] + "/big",
                                device="cpu").search(
             np.eye(8, dtype=np.float32)[2], k=1)[0].id == "c"
+        # the serving layer and the feature layers it imports
+        from fastpyvectordb_tpu_torch.server.app import create_app
+        import fastpyvectordb_tpu_torch.server.router
+        import fastpyvectordb_tpu_torch.server.__main__
+        import fastpyvectordb_tpu_torch.realtime
+        import fastpyvectordb_tpu_torch.http_client
+        import fastpyvectordb_tpu_torch.api.client
+        import fastpyvectordb_tpu_torch.embeddings as E
+        import fastpyvectordb_tpu_torch.graphdb as G
+        import fastpyvectordb_tpu_torch.native
+        create_app(sys.argv[1] + "/srv", device="cpu")
+        assert E.TransformerEmbedder(dimensions=8, n_layers=1, n_heads=2,
+                                     vocab_size=64, max_len=4,
+                                     device="cpu").embed("a b").shape == (8,)
+        g = G.GraphDB()
+        g.create_node(["A"], id="x")
+        assert len(g.query("MATCH (n:A) RETURN n")) == 1
+        assert T.Client(None, embedding_provider="hashing",
+                        device="cpu").list_collections() == []
         assert not any(m.startswith(("fastpyvectordb_tpu.", "benchmarks"))
                        or m == "fastpyvectordb_tpu" for m in sys.modules)
         assert not any(m in ("jax", "ml_dtypes")
@@ -440,6 +459,16 @@ def test_port_never_imports_jax(tmp_path):
                          capture_output=True, text=True, cwd=root,
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    # nor does any file of the port, or its card check, name a module of
+    # the JAX package
+    import re
+    jax_module = re.compile(r"\bfastpyvectordb_tpu\.\w|"
+                            r"\b(from|import)\s+fastpyvectordb_tpu\b(?!_)")
+    files = [*(root / "fastpyvectordb_tpu_torch").rglob("*.py"),
+             root / "chip_smoke.py"]
+    assert len(files) > 40
+    named = [str(f) for f in files if jax_module.search(f.read_text())]
+    assert not named, named
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])

@@ -227,3 +227,60 @@ def test_cuda_int8mm_pads_for_int_mm(b, n, d):
     # rounding only
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-4)
+
+
+def test_concurrent_first_loads_share_one_build(tmp_path, monkeypatch):
+    """Eight threads that make their first launch of one source at once
+    (a server's executor, the batcher's waves) wait for one compiler run
+    and all get the same loaded library.  ``nvcc`` is a stub on PATH that
+    sleeps, then builds a small library with g++."""
+    import os
+    import shutil
+    import sys
+    import threading
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    if shutil.which("g++") is None:
+        pytest.skip("the stub compiler needs g++")
+    stub_src = tmp_path / "stub.cpp"
+    stub_src.write_text('extern "C" int fpv_stub(int x) { return x + 1; }\n')
+    runs = tmp_path / "runs"
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    nvcc = bindir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo run >> "{runs}"\n'
+        "sleep 0.5\n"
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        f'exec g++ -shared -fPIC -o "$out" "{stub_src}"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    src = cuda_build.CudaSource("quant_scores", {"fpv_stub": [cuda_build.I]})
+    barrier = threading.Barrier(8)
+    libs, errors = [None] * 8, []
+
+    def first_launch(i):
+        try:
+            barrier.wait(10)
+            libs[i] = src.load()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=first_launch, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert runs.read_text().splitlines() == ["run"]
+    assert all(lib is libs[0] for lib in libs)
+    assert libs[0].fpv_stub(41) == 42
