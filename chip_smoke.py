@@ -29,7 +29,14 @@ batcher coalesces into waves of one ``s8_topc`` launch each), /search/batch
 at B=1024, writes with a WebSocket change feed, 10,000 texts through the
 transformer embedder on the card, a graph past the native traversal
 threshold, and two shard servers behind the router; every served result is
-held against the direct ``Collection`` call.  Each path's kernel launch
+held against the direct ``Collection`` call.  The sharded phase runs the
+multi-shard searchers of ``dist/`` on four logical shards of the card over
+the collections, snapshots and indexes built before (exact, int8 and int4
+two-stage, IVF with int8 and bf16 cells, IVF-PQ), each beside its
+single-card route, with one kernel launch a shard counted and a traced
+batch; the distributed k-means step; the dry run; a one-rank NCCL job in a
+child process.  The hybrid phase drives a ``HybridCollection`` (BM25 +
+vector fusion) of 262,144 rows with texts.  Each path's kernel launch
 counts are zeroed just before it and read just after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
@@ -874,9 +881,6 @@ def phase_main_path(tmpdir: Path):
                                           results)
     kernels.update(ivf_kernels)
     launches.update(ivf_launches)
-    db.delete_collection("bf16")
-    del bf
-    torch.cuda.empty_cache()
 
     # -- the compressed tiers, on a third collection of the same rows ------
     cc = db.create_collection("compressed", dimensions=DIMS, metric="cosine")
@@ -890,6 +894,12 @@ def phase_main_path(tmpdir: Path):
     kernels.update(pq_kernel)
     launches.update(pq_launches)
     phase_pq_scan(db, host, queries, timing_batches, results)
+    phase_sharded(col, bf, cc, scans, queries, timing_batches, truth,
+                  bf_truth, scores, tmpdir, results)
+    db.delete_collection("bf16")
+    del bf
+    torch.cuda.empty_cache()
+    phase_hybrid(host, queries, results)
 
     for mode, r in results.items():
         if r.get("gated", True) and r["recall"] < RECALL_GATE:
@@ -1505,17 +1515,6 @@ def phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
     import numpy as np
     import torch
     from fastpyvectordb_tpu_torch import BigCollection, Filter
-    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
-    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
-    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
-
-    def reset():
-        for mod in (hk, qk, s8):
-            mod.LAUNCHES.update({key: 0 for key in mod.LAUNCHES})
-
-    def counts():
-        return {k: v for mod in (hk, qk, s8) for k, v in mod.LAUNCHES.items()
-                if v}
 
     # -- int8, all rows ----------------------------------------------------
     t0 = time.perf_counter()
@@ -1535,9 +1534,9 @@ def phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
             or st["device_code_capacity_bytes"] != (1 << 20) * DIMS
             or big._codes.device.type != "cuda"):
         raise AssertionError(f"big int8: unexpected layout {caps} {st}")
-    reset()
+    zero_launches()
     hits = big.search_batch(queries, k=K)
-    launches = counts()
+    launches = nonzero_launches()
     rows = big_rows(hits)
     rec = recall_at_k(rows, truth)
     scores = np.array([[h.score for h in hl] for hl in hits])
@@ -1615,9 +1614,9 @@ def phase_bigcollection(tmpdir, host, ids, metas, queries, tune_queries,
             rerank *= 2
         col.rerank = rerank
         build_s = time.perf_counter() - t0
-        reset()
+        zero_launches()
         rows = big_rows(col.search_batch(queries, k=K))
-        launches = counts()
+        launches = nonzero_launches()
         if launches.get(kernel, 0) == 0:
             raise AssertionError(f"big {codec} ran without {kernel}: "
                                  f"{launches}")
@@ -1895,10 +1894,10 @@ def phase_wal(tmpdir: Path, queries, results):
 
 
 # ---------------------------------------------------------------------------
-# out-of-core: a 4M x 768 f32 memmap streamed tile by tile
+# out-of-core: a 2M x 768 f32 memmap streamed tile by tile
 # ---------------------------------------------------------------------------
 
-OOC_ROWS = 1 << 22            # 4,194,304 rows: 12.9 GB of f32 (a cut)
+OOC_ROWS = 1 << 21            # 2,097,152 rows: 6.4 GB of f32 (a cut)
 OOC_TILE = 262_144            # the searchers' default tile
 OOC_SMALL = 1 << 20           # int4 / binary / pq depth (a cut)
 OOC_CODECS = {"int4": "s8_topc", "binary": "hamming_mxu_scores",
@@ -2080,7 +2079,7 @@ def ooc_pass(label, searcher, batches, rate, results, launches_of=None,
 def phase_outofcore(tmpdir, host, queries, tune_queries, timing_batches,
                     truth, exact_scores, results):
     """``OutOfCoreSearcher`` (f32 and bf16) and ``QuantizedOutOfCoreSearcher``
-    (int8) over a 4M x 768 memmap; int4, binary and pq over its first
+    (int8) over a 2M x 768 memmap; int4, binary and pq over its first
     1,048,576 rows.  Checks: the streamed exact scan of the 1M collection's
     rows equals its in-memory exact scan; int8 codes written through
     ``codes_path`` and adopted with ``codes_reuse=True`` search alike; each
@@ -2870,6 +2869,435 @@ def _server_router(tmpdir: Path, host, batch, card, results):
         f"msgpack exact {rms:.1f} ms through the router vs {oms:.1f} ms on "
         f"one server over the {n} rows, hits equal up to ties; insert "
         f"{rins:.1f} s vs {oins:.1f} s; {card}")
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths (dist/), the multi-process runtime, profiling, hybrid
+# ---------------------------------------------------------------------------
+
+SHARDS = 4                    # logical shards of the sharded phase, on cuda:0
+NCCL_ROWS = 262_144           # rows of the one-rank NCCL child (one shard's)
+HYB_ROWS = 262_144            # depth of the hybrid collection (a cut)
+HYB_VOCAB = 50_000            # words of the hybrid texts, Zipf(1.1)
+HYB_QUERIES = 256
+HYB_SKIP = 50                 # the most frequent words stay out of queries
+TRACE_NAME = "sharded_batch"
+
+
+def _launch_modules():
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
+    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    return hk, ik, qk, s8
+
+
+def zero_launches() -> None:
+    for mod in _launch_modules():
+        mod.LAUNCHES.update({key: 0 for key in mod.LAUNCHES})
+
+
+def nonzero_launches() -> dict:
+    return {k: v for mod in _launch_modules() for k, v in mod.LAUNCHES.items()
+            if v}
+
+
+def in_turns(single, sharded, batches):
+    """QPS of the single-card and the sharded call over the same batches,
+    in turns: single, sharded, sharded, single."""
+    a = timed_qps(single, batches)
+    b = timed_qps(sharded, batches)
+    b2 = timed_qps(sharded, batches)
+    return [a, timed_qps(single, batches)], [b, b2]
+
+
+def sharded_mode(label, results, search, single, queries, timing_batches,
+                 truth, expect, tmpdir, single_rows=None, agree_gate=None):
+    """One sharded mode at B=1024: the launches of one counted batch must
+    be exactly ``expect`` (a kernel per shard), recall@10 against
+    ``truth``, row agreement with the single-card route, QPS in turns,
+    then a traced batch (``trace_batch``)."""
+    import torch
+    zero_launches()
+    d, rows = search(queries)
+    torch.cuda.synchronize()
+    launches = nonzero_launches()
+    if launches != expect:
+        raise AssertionError(f"{label}: launches of a sharded batch "
+                             f"{launches}, expected {expect}")
+    rows = rows.cpu().numpy() if hasattr(rows, "cpu") else rows
+    if rows.shape != (BATCH, K) or (rows < 0).any():
+        raise AssertionError(f"{label}: bad rows {rows.shape}")
+    out = {"recall": recall_at_k(rows, truth), "launches": launches}
+    if single_rows is not None:
+        out["agree_single"] = recall_at_k(rows, single_rows)
+        if agree_gate is not None and out["agree_single"] < agree_gate:
+            raise AssertionError(f"{label}: row agreement with the "
+                                 f"single-card route {out['agree_single']:.4f}"
+                                 f" < {agree_gate}")
+    out["qps_single"], out["qps"] = in_turns(single, search, timing_batches)
+    out["trace"] = trace_batch(label, lambda: search(queries), tmpdir,
+                               expect.get("s8_topc"))
+    results[label] = out
+    log(f"[sharded] {label} ({nvidia_smi_line()}): {out}")
+    return d, rows
+
+
+def phase_sharded(col, bf, cc, scans, queries, timing_batches, truth,
+                  bf_truth, scores, tmpdir: Path, results):
+    """The sharded searchers of ``dist/`` on a mesh of four logical shards
+    on cuda:0, over the snapshots and indexes the earlier phases built:
+    exact f32 (equal to the single-card scan up to ties; also on
+    ``make_mesh()``, the card itself), ``ShardedInt8`` with the int8 codec
+    (one ``s8_topc`` a shard) and the int4 codec (one ``int4_scores`` a
+    shard), ``ShardedIVF`` with int8 cells (B3) and bf16 cells (B2),
+    ``ShardedIVFPQ`` (B7) at the IVF-PQ phase's tuned nprobe / rerank, each
+    beside its single-card route and traced (``profiling.trace``: one
+    ``s8_topc`` kernel event a shard in the int8 batch); the distributed k-means step on the 1M rows against a
+    one-shard mesh; ``dryrun_multichip(4)``; a one-rank NCCL job in a
+    child process."""
+    import torch
+    from fastpyvectordb_tpu_torch.dist.dryrun import dryrun_multichip
+    from fastpyvectordb_tpu_torch.dist.mesh import (Mesh, logical_mesh,
+                                                    make_mesh)
+    from fastpyvectordb_tpu_torch.dist.sharded import (
+        build_sharded_kmeans_step)
+    from fastpyvectordb_tpu_torch.dist.sharded_ann import (ShardedInt8,
+                                                           ShardedIVF,
+                                                           ShardedIVFPQ)
+    t_phase = time.perf_counter()
+    mesh = logical_mesh(SHARDS, device="cuda:0")
+    log(f"[sharded] mesh {mesh}; {nvidia_smi_line()}")
+
+    # -- exact f32 ----------------------------------------------------------
+    for label, m in (("sharded_exact_f32", mesh),
+                     ("sharded_exact_f32_card_mesh", make_mesh())):
+        sh = col.as_sharded_searcher(m)
+        d, rows = sharded_mode(
+            label, results, lambda qb: tuple(
+                t.cpu() for t in sh.search(torch.as_tensor(qb,
+                                                           device="cuda"),
+                                           K)),
+            lambda qb: col.search_arrays(qb, k=K, exact=True), queries,
+            timing_batches, truth, {}, tmpdir)
+        if not same_up_to_ties(scores, truth, d.numpy(), rows):
+            raise AssertionError(f"{label}: differs from the single-card "
+                                 "exact scan beyond ties")
+        results[label]["shard_rows"] = sh.vectors.block(0, 0).shape[0]
+        del sh
+    torch.cuda.empty_cache()
+
+    # -- int8 / int4 two-stage ---------------------------------------------
+    for kind, rerank, kernel in (("int8", 4, {"s8_topc": SHARDS}),
+                                 ("int4", 8, {"int4_scores": SHARDS})):
+        scan = scans[kind]
+        sh = ShardedInt8.from_scan(mesh, scan)
+        _, single_rows = scan.search(queries, K, rerank=rerank)
+        sharded_mode(f"sharded_{kind}_rr{rerank}", results,
+                     lambda qb: sh.search(qb, K, rerank=rerank),
+                     lambda qb: scan.search(qb, K, rerank=rerank), queries,
+                     timing_batches, truth, kernel, tmpdir, single_rows, 0.9)
+        del sh
+        torch.cuda.empty_cache()
+
+    # -- IVF: int8 cells (B3) and bf16 cells (B2) ---------------------------
+    for label, c, gate_truth, kernel in (
+            ("sharded_ivf_int8", col, truth, "grouped_cell_scores_i8"),
+            ("sharded_ivf_bf16", bf, bf_truth, "grouped_cell_scores")):
+        ann = c._ann
+        sh = ShardedIVF.from_index(mesh, ann)
+        if not sh._allow_grouped or BATCH * sh.nprobe_local < \
+                sh.centroids.block(0, 0).shape[0]:
+            raise AssertionError(f"{label}: the grouped branch would not run")
+        _, single_rows = ann.search(queries, K)
+        sharded_mode(label, results, lambda qb: sh.search(qb, K),
+                     lambda qb: ann.search(qb, K), queries, timing_batches,
+                     gate_truth, {kernel: SHARDS}, tmpdir, single_rows)
+        results[label].update(
+            nprobe=ann.nprobe, nprobe_local=sh.nprobe_local,
+            local_cells=sh.centroids.block(0, 0).shape[0],
+            boost_cells=int(sh.cent_boost.full().sum()),
+            dropped_pairs=sh.last_dropped, rerank=sh.rerank,
+            recall_f32=recall_at_k(sh.search(queries, K)[1], truth))
+        log(f"[sharded] {label}: dropped pairs {sh.last_dropped}")
+        del sh
+        torch.cuda.empty_cache()
+
+    # -- IVF-PQ (B7) ----------------------------------------------------------
+    ann = cc._ann
+    sh = ShardedIVFPQ.from_index(mesh, ann)
+    _, single_rows = ann.search(queries, K)
+    sharded_mode("sharded_ivfpq", results, lambda qb: sh.search(qb, K),
+                 lambda qb: ann.search(qb, K), queries, timing_batches,
+                 truth, {"grouped_cell_scores_pq": SHARDS}, tmpdir,
+                 single_rows)
+    results["sharded_ivfpq"].update(
+        nprobe=ann.nprobe, nprobe_local=sh.nprobe_local, rerank=sh.rerank,
+        overflow_rows=int((sh.orow_ids.full() >= 0).sum()),
+        dropped_pairs=sh.last_dropped)
+    del sh
+    torch.cuda.empty_cache()
+
+    # -- the distributed k-means step ----------------------------------------
+    data = col._store.vectors[:N_ROWS]
+    # the IVF build's initial centroids (quant/kmeans.py: a permutation of
+    # the rows from a CPU generator seeded with the build's seed, 0)
+    init = torch.randperm(N_ROWS, generator=torch.Generator().manual_seed(0))
+    c0 = data[init[:IVF_BUILD["nlist"]].to("cuda")].float()
+    w = torch.ones((N_ROWS,), device="cuda")
+    km = {}
+    for label, m in (("one", Mesh(["cuda:0"])), ("four", mesh)):
+        step = build_sharded_kmeans_step(m, k=IVF_BUILD["nlist"])
+        step(data, w, c0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km[label] = step(data, w, c0)
+        torch.cuda.synchronize()
+        km[label + "_ms"] = (time.perf_counter() - t0) * 1e3
+    (c1, n1), (c4, n4) = km["one"], km["four"]
+    if int(n4.sum()) != N_ROWS or int(n1.sum()) != N_ROWS:
+        raise AssertionError(f"k-means: counts sum to {int(n4.sum())}")
+    rel = float((c4 - c1).abs().max() / c1.abs().max())
+    moved = int((n4 != n1).sum())
+    if rel > 1e-4:
+        raise AssertionError(f"k-means: 4-shard centroids {rel:.3g} "
+                             f"relative from the one-shard step ({moved} "
+                             "counts differ)")
+    results["sharded_kmeans_step"] = {
+        "gated": False, "rel_err": rel, "counts_differ": moved,
+        "ms_one_shard": km["one_ms"], "ms_four_shards": km["four_ms"],
+        "live_centroids": int((n4 > 0).sum())}
+    log(f"[sharded] k-means step on {N_ROWS}x{DIMS}, k "
+        f"{IVF_BUILD['nlist']}: {results['sharded_kmeans_step']}")
+    del data, c0, w, km, c1, c4
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dryrun_multichip(SHARDS, device="cuda")
+    log(f"[sharded] dryrun_multichip({SHARDS}, device='cuda'): passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    results["sharded_nccl_one_rank"] = nccl_child(col, queries, tmpdir)
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def trace_batch(label, run, tmpdir: Path, expect_topc=None) -> dict:
+    """``profiling.trace`` around one batch of a sharded mode, annotated
+    with ``TRACE_NAME``: where its device time goes (busy = kernels, copies
+    and sets; idle share against the annotated region's wall time; the
+    largest items).  ``expect_topc``: the ``s8_topc`` kernel events the
+    trace must hold (one a shard)."""
+    from fastpyvectordb_tpu_torch import profiling
+    with profiling.trace(str(tmpdir / "trace"), device="cuda") as d:
+        with profiling.annotate(TRACE_NAME):
+            run()
+    path = Path(d) / profiling.TRACE_FILE
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    topc = [n for n in kernels if "S8TopcOp" in n]
+    named = [e for e in events if e.get("name") == TRACE_NAME]
+    busy, by_name = 0.0, {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy += e.get("dur", 0.0)
+            key = "S8TopcOp" if "S8TopcOp" in e.get("name", "") else \
+                e.get("name", "")[:60]
+            by_name[key] = by_name.get(key, 0.0) + e.get("dur", 0.0)
+    wall = max((e.get("dur", 0.0) for e in named), default=0.0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"kernel_events": len(kernels), "s8_topc_events": len(topc),
+           "annotated": bool(named), "wall_ms": wall / 1e3,
+           "busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / wall if wall else None,
+           "top_device_ms": {k: v / 1e3 for k, v in top}}
+    log(f"[profiling] trace of one {label} batch: {out}")
+    if not named or (expect_topc is not None and len(topc) != expect_topc):
+        raise AssertionError(f"trace: {len(topc)} s8_topc kernel events "
+                             f"(expected {expect_topc}), annotation "
+                             f"{bool(named)}; kernels seen: "
+                             f"{sorted(set(kernels))[:20]}")
+    return out
+
+
+_NCCL_CHILD = '''
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+from fastpyvectordb_tpu_torch.dist import multihost
+from fastpyvectordb_tpu_torch.dist.sharded import build_sharded_search
+rows = np.load(sys.argv[2] + "/nccl_rows.npy")
+q = np.load(sys.argv[2] + "/nccl_q.npy")
+multihost.initialize(f"localhost:{sys.argv[3]}", 1, 0, timeout=60)
+assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+mesh = multihost.global_mesh()
+v = multihost.shard_local_corpus(mesh, rows)
+valid = multihost.shard_local_corpus(mesh, np.ones((rows.shape[0],), bool))
+d, r = build_sharded_search(mesh, metric="cosine", k=int(sys.argv[4]))(
+    torch.as_tensor(q, device="cuda"), v, valid)
+np.savez(sys.argv[2] + "/nccl_out.npz", d=d.cpu().numpy(), r=r.cpu().numpy(),
+         shape=np.array(list(mesh.shape.values())))
+dist.destroy_process_group()
+print("nccl child ok", flush=True)
+'''
+
+
+def nccl_child(col, queries, tmpdir: Path) -> dict:
+    """A child process with a time limit joins a one-rank NCCL job
+    (``multihost.initialize``), builds ``global_mesh``, places the first
+    262,144 rows with ``shard_local_corpus`` and runs one sharded exact
+    search; it must equal a single-card collection's search of the same
+    rows up to ties."""
+    import socket
+    import numpy as np
+    from fastpyvectordb_tpu_torch import Collection, CollectionConfig
+    rows = col._store.get_rows(np.arange(NCCL_ROWS))
+    np.save(tmpdir / "nccl_rows.npy", rows)
+    np.save(tmpdir / "nccl_q.npy", queries)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _NCCL_CHILD, str(ROOT),
+                          str(tmpdir), str(port), str(K)],
+                         capture_output=True, text=True, timeout=180)
+    child_s = time.perf_counter() - t0
+    if out.returncode != 0 or "nccl child ok" not in out.stdout:
+        raise AssertionError(f"NCCL child rc {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    got = np.load(tmpdir / "nccl_out.npz")
+    one = Collection(CollectionConfig(name="n", dimensions=DIMS,
+                                      metric="cosine"), device="cuda")
+    one.insert_batch(rows)
+    _, sd, sr = one.search_arrays(queries, k=K)
+    if not same_up_to_ties(sd, sr, got["d"], got["r"]):
+        raise AssertionError("NCCL child: its sharded search differs from "
+                             "the single-card one beyond ties")
+    for name in ("nccl_rows.npy", "nccl_q.npy", "nccl_out.npz"):
+        (tmpdir / name).unlink()
+    res = {"gated": False, "child_s": child_s,
+           "mesh": got["shape"].tolist(), "rows": NCCL_ROWS}
+    log(f"[sharded] one-rank NCCL child: initialize, global_mesh "
+        f"{res['mesh']}, shard_local_corpus, sharded search equal to the "
+        f"single-card one up to ties ({child_s:.1f} s)")
+    return res
+
+
+def hybrid_texts(n: int, seed: int):
+    """``n`` texts of 8-64 words from a Zipf(1.1) vocabulary of
+    ``HYB_VOCAB`` words (ranks past the vocabulary drawn again)."""
+    import numpy as np
+    gen = np.random.default_rng(seed)
+    words = np.array([f"t{i}" for i in range(HYB_VOCAB)])
+    lens = gen.integers(8, 65, n)
+    ranks = gen.zipf(1.1, int(lens.sum()) * 2)
+    ranks = ranks[ranks <= HYB_VOCAB][:int(lens.sum())] - 1
+    toks = words[ranks].tolist()
+    ends = np.cumsum(lens).tolist()
+    return [" ".join(toks[e - ln:e]) for e, ln in zip(ends, lens.tolist())], \
+        words
+
+
+def fused(vec_hits, kw_hits, k, alpha):
+    """The fusion ``HybridCollection.hybrid_search`` documents (cosine):
+    distances to ``1 - d / max_d``, BM25 to ``s / max_s``, blended by
+    ``alpha``, sorted by (-score, id)."""
+    vs, ks = {}, {}
+    if vec_hits:
+        max_d = max(h.score for h in vec_hits) or 1.0
+        max_d = max_d if max_d > 0 else 1.0
+        vs = {h.id: 1.0 - h.score / max_d for h in vec_hits}
+    if kw_hits:
+        max_s = max(s for _, s in kw_hits) or 1.0
+        ks = {i: s / max_s for i, s in kw_hits}
+    out = [(alpha * vs.get(i, 0.0) + (1 - alpha) * ks.get(i, 0.0), i)
+           for i in set(vs) | set(ks)]
+    out.sort(key=lambda t: (-t[0], t[1]))
+    return out[:k]
+
+
+def phase_hybrid(host, queries, results):
+    """A ``HybridCollection`` on the card (262,144 x 768 rows, each with a
+    text of 8-64 words, native BM25): insert rate, ``keyword_search``
+    against the Python ``BM25Index`` over the same documents, and
+    ``hybrid_search(alpha=0.5)`` against the fusion of the collection's own
+    ``search_batch`` and ``keyword_search`` hits, for 256 queries; hybrid
+    QPS with p50 / p99 (``profiling.QueryTimer``)."""
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch import CollectionConfig, native
+    from fastpyvectordb_tpu_torch.hybrid import BM25Index, HybridCollection
+    from fastpyvectordb_tpu_torch.profiling import QueryTimer
+    t0 = time.perf_counter()
+    texts, words = hybrid_texts(HYB_ROWS, 7)
+    ids = [f"h{i}" for i in range(HYB_ROWS)]
+    log(f"[hybrid] {HYB_ROWS} texts made in {time.perf_counter() - t0:.1f} s"
+        f" (mean {np.mean([t.count(' ') + 1 for t in texts[:4096]]):.1f} "
+        "words)")
+    col = HybridCollection(CollectionConfig(name="hyb", dimensions=DIMS,
+                                            metric="cosine"),
+                           text_fields=["text"], device="cuda")
+    if not isinstance(col._bm25, native.NativeBM25):
+        raise AssertionError("hybrid: the native BM25 engine did not build")
+    step = HYB_ROWS // 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, HYB_ROWS, step):
+        col.insert_batch(host[s:s + step], ids[s:s + step],
+                         [{"text": t} for t in texts[s:s + step]])
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = BM25Index()
+    for i, t in zip(ids, texts):
+        ref.add_document(i, t)
+    ref_s = time.perf_counter() - t0
+    gen = np.random.default_rng(8)
+    qr = gen.zipf(1.1, HYB_QUERIES * 40)
+    qr = qr[(qr > HYB_SKIP) & (qr <= HYB_VOCAB)] - 1
+    nterm = gen.integers(1, 5, HYB_QUERIES)
+    ends = np.cumsum(nterm)
+    qtexts = [" ".join(words[qr[e - n:e]]) for e, n in zip(ends, nterm)]
+    qvecs = queries[:HYB_QUERIES]
+    for text in qtexts:
+        got = [(h.id, h.score) for h in col.keyword_search(text, k=K)]
+        want = ref.search(text, K)
+        if [i for i, _ in got] != [i for i, _ in want] or not np.allclose(
+                [s for _, s in got], [s for _, s in want], rtol=1e-9,
+                atol=0):
+            raise AssertionError(f"hybrid: keyword_search({text!r}) {got} "
+                                 f"!= BM25Index {want}")
+    timer, vec_t, kw_t = (QueryTimer(seed=0) for _ in range(3))
+    fetch = 5 * K
+    for qv, text in zip(qvecs, qtexts):
+        with timer.measure():
+            res = col.hybrid_search(qv, text, k=K, alpha=0.5)
+        # the two stages of the same query alone, for where the time goes
+        with vec_t.measure():
+            vec_hits = col.search_batch(qv[None], k=fetch)[0]
+        with kw_t.measure():
+            kw_hits = [(h.id, h.score)
+                       for h in col.keyword_search(text, k=fetch)]
+        want = fused(vec_hits, kw_hits, K, 0.5)
+        if [r.id for r in res] != [i for _, i in want] or any(
+                abs(r.score - s) > 1e-6 for r, (s, _) in zip(res, want)):
+            raise AssertionError(f"hybrid: hybrid_search({text!r}) differs "
+                                 "from the fusion of its own hits")
+    summ = timer.summary()
+    results["hybrid"] = {
+        "gated": False, "rows": HYB_ROWS, "insert_rows_per_s":
+        HYB_ROWS / insert_s, "python_index_s": ref_s,
+        "hybrid_qps": summ["qps"], "p50_ms": summ["p50_ms"],
+        "p99_ms": summ["p99_ms"], "terms": col._bm25.stats()["terms"],
+        **{f"{name}_{q}_ms": t.summary()[f"{q}_ms"]
+           for name, t in (("vector_stage", vec_t), ("keyword_stage", kw_t))
+           for q in ("p50", "p99")}}
+    log(f"[hybrid] {nvidia_smi_line()}: {results['hybrid']}; "
+        f"keyword_search equal to BM25Index on {HYB_QUERIES} queries, "
+        "hybrid_search equal to the fusion of its own hits")
+    del col, ref
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -17,9 +17,14 @@ The serving layer in front of them: the REST / WebSocket server
 embedded ChromaDB-style client (``api.Client``); the embedders
 (``embeddings``, whose ``TransformerEmbedder`` runs on the card) and the
 property graph with Cypher and native CSR traversal (``graphdb``,
-``native``).  What still raises ``NotImplementedError``: the graph ANN
-kind and ``as_sharded_searcher``; the BM25 hybrid collection is not
-ported yet.
+``native``); the BM25 hybrid collection (``HybridCollection``: BM25 over
+the native engine, fused with the vector search); multi-card sharded
+search (``dist/``: meshes over one process's shards or over
+``torch.distributed``, the sharded exact search and k-means step, sharded
+IVF / IVF-PQ / int8 / int4 searchers on the same kernels,
+``Collection.as_sharded_searcher``); and ``profiling`` (``QueryTimer``,
+``torch.profiler`` traces).  What still raises ``NotImplementedError``:
+the graph ANN kind.
 
 Every TPU Pallas kernel of the JAX package has a hand-written Hopper
 counterpart under ``csrc/`` (``quant_scores.cu``, ``hamming_scores.cu``,
@@ -40,6 +45,7 @@ from .core.collection import Collection  # noqa: F401
 from .core.bigcollection import BigCollection  # noqa: F401
 from .core.vectordb import VectorDB  # noqa: F401
 from .state import collection_from_sections  # noqa: F401
+from .hybrid import HybridCollection  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -53,6 +59,7 @@ __all__ = [
     "BigCollection",
     "VectorDB",
     "collection_from_sections",
+    "HybridCollection",
     "__version__",
 ]
 

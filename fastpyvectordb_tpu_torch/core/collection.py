@@ -12,8 +12,9 @@ Persistence is one FPVT container per collection, byte-compatible with the
 JAX package, and goes through ``state.collection_from_sections``.
 
 Entry points of the JAX Collection that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: the graph ANN kind and
-``as_sharded_searcher``.
+``NotImplementedError`` naming their ROADMAP item: only the graph ANN
+kind.  ``as_sharded_searcher`` shards the store over a mesh
+(dist/sharded.py).
 """
 
 from __future__ import annotations
@@ -90,6 +91,10 @@ class Collection:
             self._load()
             self.config.durability = requested_durability
             self.config.wal_fsync = requested_fsync
+        # subclass hook (HybridCollection's BM25 snapshot): after the
+        # snapshot load, before WAL replay, so replayed mutations layer on
+        # top of the loaded sidecar state
+        self._after_snapshot_load()
         if self.base_path is not None and requested_durability == "wal":
             # open the log, then re-apply what it holds on top of the
             # snapshot; with snapshot durability a log is left unread, as
@@ -102,6 +107,9 @@ class Collection:
             # VectorDB reads durability and dims back from this sidecar
             # before it decides whether to replay a log
             self._write_config_sidecar()
+
+    def _after_snapshot_load(self) -> None:
+        """Subclass hook; see __init__."""
 
     def _write_config_sidecar(self) -> None:
         import dataclasses
@@ -963,10 +971,20 @@ class Collection:
         bad = (rows < 0) | (np.asarray(dists) >= float(MASKED) * 0.5)
         return np.where(bad, np.inf, out).astype(np.float32)
 
-    def as_sharded_searcher(self, *args, **kwargs):
-        raise _not_ported("as_sharded_searcher",
-                          "multi-card search over torch.distributed "
-                          "(ROADMAP queue A item 14)")
+    def as_sharded_searcher(self, mesh=None):
+        """Snapshot this collection into a row-sharded multi-card searcher
+        (dist/sharded.py); with no ``mesh``, ``make_mesh()`` over the
+        devices of the collection's device type.  The store's power-of-two
+        capacity divides any power-of-two mesh, and shards on the store's
+        own device are views of its buffers."""
+        from ..dist.mesh import make_mesh
+        from ..dist.sharded import ShardedSearcher
+        with self._lock:
+            mesh = mesh or make_mesh(device=self.device.type)
+            return ShardedSearcher(
+                mesh, self._store.vectors, self._store.valid,
+                metric=self.config.metric,
+                compute_dtype=self.config.compute_dtype)
 
     # ------------------------------------------------------------------
     # Introspection

@@ -261,10 +261,12 @@ def test_unported_paths_raise_and_keep_ann_data(tmp_path):
         T.VectorDB(tmp_path / "j", device="cpu")
     tc = T.VectorDB(None, device="cpu").create_collection("x", dimensions=4)
     tc.insert(np.ones(4, np.float32), "a")
-    for call in (lambda: tc.build_ann(kind="graph"), tc.as_sharded_searcher):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    # the WAL, optimize, prewarm and the stream are ported: none raises
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tc.build_ann(kind="graph")
+    # the WAL, optimize, prewarm, the stream and the sharded searcher are
+    # ported: none raises
+    _, rows = tc.as_sharded_searcher().search(np.ones((1, 4), np.float32), 1)
+    assert int(rows[0, 0]) == 0
     assert tc.optimize()["installed"] == "exact"
     assert set(tc.prewarm(max_batch=2)) == {"exact_b1", "exact_b2"}
     assert len(list(tc.search_arrays_stream([np.ones((1, 4), np.float32)],
@@ -447,6 +449,26 @@ def test_port_never_imports_jax(tmp_path):
         assert len(g.query("MATCH (n:A) RETURN n")) == 1
         assert T.Client(None, embedding_provider="hashing",
                         device="cpu").list_collections() == []
+        # multi-card search, the hybrid collection and profiling
+        from fastpyvectordb_tpu_torch.dist import mesh as M
+        import fastpyvectordb_tpu_torch.dist.sharded
+        import fastpyvectordb_tpu_torch.dist.sharded_ann
+        import fastpyvectordb_tpu_torch.dist.multihost
+        import fastpyvectordb_tpu_torch.dist.collectives
+        from fastpyvectordb_tpu_torch.dist.dryrun import dryrun_multichip
+        from fastpyvectordb_tpu_torch.hybrid import HybridCollection
+        from fastpyvectordb_tpu_torch import profiling
+        dryrun_multichip(2, device="cpu")
+        h = HybridCollection(T.CollectionConfig(name="h", dimensions=8),
+                             text_fields=["t"], device="cpu")
+        h.insert_batch(np.eye(8, dtype=np.float32), list("abcdefgh"),
+                       [{"t": "red fox"}] + [{"t": "dog"}] * 7)
+        assert h.hybrid_search(np.eye(8, dtype=np.float32)[0], "fox",
+                               k=1)[0].id == "a"
+        with profiling.trace(sys.argv[1] + "/trace", device="cpu"):
+            with profiling.annotate("x"):
+                h.search(np.eye(8, dtype=np.float32)[0], k=1)
+        assert M.make_mesh(4, device="cpu").shape == {"data": 4}
         assert not any(m.startswith(("fastpyvectordb_tpu.", "benchmarks"))
                        or m == "fastpyvectordb_tpu" for m in sys.modules)
         assert not any(m in ("jax", "ml_dtypes")

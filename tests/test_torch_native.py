@@ -1,7 +1,7 @@
 """The port's native C++ layer (the cases of ``tests/test_native.py``):
 ``bm25.cpp`` builds with g++ into ``build/native`` and agrees bit for bit
 with the JAX package's pure-Python BM25 (``hybrid/bm25.py``, the
-reference: the port has no hybrid layer yet) on scores and rankings;
+reference) on scores and rankings;
 ``graph.cpp``'s CSR traversal answers as the JAX package's build of it."""
 
 import numpy as np
