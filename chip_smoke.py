@@ -36,8 +36,14 @@ two-stage, IVF with int8 and bf16 cells, IVF-PQ), each beside its
 single-card route, with one kernel launch a shard counted and a traced
 batch; the distributed k-means step; the dry run; a one-rank NCCL job in a
 child process.  The hybrid phase drives a ``HybridCollection`` (BM25 +
-vector fusion) of 262,144 rows with texts.  Each path's kernel launch
-counts are zeroed just before it and read just after.
+vector fusion) of 262,144 rows with texts.  The graph phase builds the
+graph ANN (``build_ann("graph")``, the JAX package's defaults) over the 1M
+rows, tunes it on held-out queries, gates its recall@10, times it at
+B=1024 and B=1, traces a batch, runs a search under
+``torch.cuda.set_sync_debug_mode("error")`` and saves / reopens it; no
+hand kernel stands behind it (no Pallas kernel stands behind the JAX
+graph search), and its launch counts must stay at zero.  Each path's
+kernel launch counts are zeroed just before it and read just after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
 passed.  The last lines are a JSON object of per-kernel numbers (launches
@@ -900,6 +906,8 @@ def phase_main_path(tmpdir: Path):
     del bf
     torch.cuda.empty_cache()
     phase_hybrid(host, queries, results)
+    phase_graph(host, ids, metas, queries, tune_queries, timing_batches,
+                truth, tmpdir, results)
 
     for mode, r in results.items():
         if r.get("gated", True) and r["recall"] < RECALL_GATE:
@@ -3078,6 +3086,174 @@ def phase_sharded(col, bf, cc, scans, queries, timing_batches, truth,
         f"{time.perf_counter() - t0:.1f} s")
     results["sharded_nccl_one_rank"] = nccl_child(col, queries, tmpdir)
     log(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the graph ANN (ann/graph_ann.py) on the main path's corpus
+# ---------------------------------------------------------------------------
+
+# the JAX package's build defaults (GraphANN.build)
+GRAPH_BUILD = {"r": 32, "n_entries": 4096, "random_links": 4, "chunk": 4096}
+# (beam, iters) tried in order on the held-out queries, up to TUNE_TARGET,
+# when tune's pick misses the gate on the evaluation batch: the top of
+# GraphANN.tune's grid (beam <= 256, iters <= 32), then points past it
+GRAPH_PAST_GRID = ((256, 32), (256, 48), (512, 32), (512, 48), (512, 64))
+GRAPH_SINGLES = 256
+
+
+def phase_graph(host, ids, metas, queries, tune_queries, timing_batches,
+                truth, tmpdir: Path, results):
+    """``build_ann("graph")`` at the JAX package's defaults on a collection
+    of the main path's 1M x 768 cosine rows (f32 store): build seconds by
+    stage; ``tune`` on held-out queries (target ``RECALL_GATE``; if its
+    grid falls short, explicit ``beam`` / ``iters`` past it, measured on the
+    held-out queries); recall@10 against the exact f32 truth (gated); QPS at
+    B=1024; B=1 p50 / p99 over 256 singles; one traced B=1024 batch; one
+    ``search(..., device_out=True)`` under
+    ``torch.cuda.set_sync_debug_mode("error")``; a filtered search
+    (``cat == 3``) against the filtered exact scan; ``optimize()``'s graph
+    branch; save -> reopen -> equal hits.  No hand kernel stands behind
+    this path (the JAX package's graph search is XLA, no Pallas kernel):
+    the counters must stay at zero through it."""
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch import Filter, VectorDB
+    from fastpyvectordb_tpu_torch.persist.format import load_container
+    from fastpyvectordb_tpu_torch.profiling import QueryTimer
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    path = tmpdir / "graph"
+    db = VectorDB(str(path), device="cuda")
+    col = db.create_collection("graph", dimensions=DIMS, metric="cosine")
+    col.insert_batch(host, ids, metas)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        col.build_ann("graph", tune=False, **GRAPH_BUILD)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ann = col._ann
+    stages = dict(ann.build_seconds)
+    if not any("graph" in str(w.message) for w in warned):
+        raise AssertionError("graph: build_ann(kind='graph') did not warn")
+    st = ann.stats()
+    log(f"[graph] build {build_s:.2f} s on {card}: stages {stages}, "
+        f"stats {st}")
+    if st["nodes"] != N_ROWS or st["degree"] != GRAPH_BUILD["r"] \
+            or st["entries"] != GRAPH_BUILD["n_entries"]:
+        raise AssertionError(f"graph: stats {st}")
+
+    # -- tune on held-out queries, then the gate on the evaluation batch --
+    t0 = time.perf_counter()
+    tuned = ann.tune(tune_queries[:256], target_recall=RECALL_GATE, k=K)
+    tune_s = time.perf_counter() - t0
+    _, _, rows = col.search_arrays(queries, k=K)
+    rec = recall_at_k(rows, truth)
+    log(f"[graph] tune {tune_s:.2f} s -> {tuned}; recall@10 on the "
+        f"evaluation batch {rec:.4f}")
+    escalated = None
+    if rec < RECALL_GATE:
+        tune_truth = col.search_arrays(tune_queries[:256], k=K,
+                                       exact=True)[2]
+        for beam, iters in GRAPH_PAST_GRID:
+            if beam * iters <= ann.beam * ann.iters:
+                continue
+            hrec = recall_at_k(ann.search(tune_queries[:256], K, beam=beam,
+                                          iters=iters)[1], tune_truth)
+            log(f"[graph] beam {beam}, iters {iters}: held-out recall@10 "
+                f"{hrec:.4f}")
+            if hrec >= TUNE_TARGET:
+                col.set_search_params(beam=beam, iters=iters)
+                escalated = {"beam": beam, "iters": iters, "recall": hrec}
+                break
+        _, _, rows = col.search_arrays(queries, k=K)
+        rec = recall_at_k(rows, truth)
+    log(f"[graph] recall@10 on the evaluation batch {rec:.4f} at beam "
+        f"{ann.beam}, iters {ann.iters}, expand {ann.expand} (escalated "
+        f"past tune's pick: {escalated})")
+    if rec < RECALL_GATE:
+        raise AssertionError(f"graph: recall@10 {rec:.4f} < {RECALL_GATE}")
+
+    # -- throughput, single-query latency, a traced batch -----------------
+    qps = timed_qps(lambda qb: col.search_arrays(qb, k=K), timing_batches)
+    timer = QueryTimer(seed=0)
+    singles = queries[:GRAPH_SINGLES]
+    col.search_arrays(singles[:1], k=K)
+    for qv in singles:
+        with timer.measure():
+            col.search_arrays(qv[None], k=K)
+    lat = timer.summary()
+    trace = trace_batch("graph", lambda: col.search_arrays(queries, k=K),
+                        tmpdir)
+
+    # -- the beam loop never waits for the host ----------------------------
+    qd = torch.as_tensor(queries, device="cuda")
+    ann.search(qd, K, device_out=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, drows = ann.search(qd, K, device_out=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not np.array_equal(drows.cpu().numpy(), rows):
+        raise AssertionError("graph: the device_out search differs from "
+                             "search_arrays on the same batch")
+    log(f"[graph] search(device_out=True) of a B={BATCH} batch ran under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # -- filtered: post-navigation filter vs the filtered exact scan ------
+    flt = Filter.eq("cat", 3)
+    _, _, frows = col.search_arrays(queries, k=K, filter=flt)
+    _, _, fexact = col.search_arrays(queries, k=K, filter=flt, exact=True)
+    if not (frows[frows >= 0] % 10 == 3).all():
+        raise AssertionError("graph: a filtered hit does not match")
+    frec = recall_at_k(frows, fexact)
+    report = col.optimize(k=K, build=False, install=False)
+    if "cost_us_measured" not in report.get("ann", {}):
+        raise AssertionError(f"graph: optimize report {report}")
+    launches = nonzero_launches()
+    if launches:
+        raise AssertionError(f"graph: hand kernels launched on the graph "
+                             f"path: {launches}")
+
+    # -- save -> reopen -> equal hits --------------------------------------
+    t0 = time.perf_counter()
+    db.save()
+    saved = load_container(path / "graph" / "collection.fpvt")
+    for name, t in (("ann_neighbors", ann.neighbors),
+                    ("ann_centroids", ann.centroids),
+                    ("ann_medoids", ann.medoids)):
+        if saved.read(name).tobytes() != t.cpu().numpy().tobytes():
+            raise AssertionError(f"graph: saved {name} differs")
+    del col, ann, db, saved
+    torch.cuda.empty_cache()
+    col2 = VectorDB(str(path), device="cuda")["graph"]
+    _, _, rows2 = col2.search_arrays(queries, k=K)
+    if col2.config.index != "graph" or not np.array_equal(rows2, rows):
+        raise AssertionError("graph: hits differ after save -> reopen")
+    reload_s = time.perf_counter() - t0
+    results["graph"] = {
+        "recall": rec, "qps": qps, "beam": col2._ann.beam,
+        "iters": col2._ann.iters, "expand": col2._ann.expand,
+        "tune": tuned, "tune_s": tune_s, "escalated": escalated,
+        "build_s": build_s, "build_stages_s": stages,
+        "b1_p50_ms": lat["p50_ms"], "b1_p99_ms": lat["p99_ms"],
+        "b1_qps": lat["qps"], "trace": trace, "no_sync": True,
+        "filtered_recall": frec, "optimize_ann": report["ann"],
+        "save_reload_s": reload_s, "launches": launches, "card": card}
+    log(f"[graph] {card}: recall@10 {rec:.4f}, QPS {qps:.1f} at B={BATCH}, "
+        f"B=1 p50 {lat['p50_ms']:.3f} ms / p99 {lat['p99_ms']:.3f} ms, "
+        f"trace idle share {trace['idle_share']}, filtered (cat == 3) "
+        f"recall@10 {frec:.4f} against the filtered exact scan, optimize "
+        f"ann {report['ann']}, save + reopen {reload_s:.1f} s: equal hits")
+    del col2
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    log(f"[graph] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def trace_batch(label, run, tmpdir: Path, expect_topc=None) -> dict:

@@ -2,8 +2,9 @@
 
 The same collection API and on-disk formats as the JAX package, on torch
 tensors: ``VectorDB`` / ``Collection`` with the exact scan, the int8 / int4
-/ binary / pq two-stage quantized scans, IVF (flat, grouped, int8 cells)
-and IVF-PQ, write-ahead-log durability (``durability="wal"``), the
+/ binary / pq two-stage quantized scans, IVF (flat, grouped, int8 cells),
+IVF-PQ and the graph ANN (a k-NN graph and a batched beam search on the
+device), write-ahead-log durability (``durability="wal"``), the
 pipelined ``search_arrays_stream``, ``optimize()`` on an H100 cost model
 and ``prewarm()``; the standalone quantizers; ``BigCollection`` (host
 vectors, device codes) and the streamed out-of-core searchers
@@ -23,8 +24,7 @@ search (``dist/``: meshes over one process's shards or over
 ``torch.distributed``, the sharded exact search and k-means step, sharded
 IVF / IVF-PQ / int8 / int4 searchers on the same kernels,
 ``Collection.as_sharded_searcher``); and ``profiling`` (``QueryTimer``,
-``torch.profiler`` traces).  What still raises ``NotImplementedError``:
-the graph ANN kind.
+``torch.profiler`` traces).
 
 Every TPU Pallas kernel of the JAX package has a hand-written Hopper
 counterpart under ``csrc/`` (``quant_scores.cu``, ``hamming_scores.cu``,

@@ -1,8 +1,8 @@
 """Core Collection: CRUD + exact, quantized and IVF search + filters +
 persistence (port of ``fastpyvectordb_tpu/core/collection.py``: the exact
-scan, the int8 / int4 / binary / pq two-stage scans, IVF and IVF-PQ,
-write-ahead-log durability, the pipelined ``search_arrays_stream``,
-``optimize()`` and ``prewarm()``).
+scan, the int8 / int4 / binary / pq two-stage scans, IVF, IVF-PQ and the
+graph ANN, write-ahead-log durability, the pipelined
+``search_arrays_stream``, ``optimize()`` and ``prewarm()``).
 
 Vectors live in a DeviceVectorStore on the collection's torch device
 (``device="cuda"`` unless the caller passes ``device="cpu"``).  Filters
@@ -10,11 +10,7 @@ compile to host masks that the store moves to the device as ``torch.bool``.
 Deletes tombstone the validity mask and ``compact()`` physically reclaims.
 Persistence is one FPVT container per collection, byte-compatible with the
 JAX package, and goes through ``state.collection_from_sections``.
-
-Entry points of the JAX Collection that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: only the graph ANN
-kind.  ``as_sharded_searcher`` shards the store over a mesh
-(dist/sharded.py).
+``as_sharded_searcher`` shards the store over a mesh (dist/sharded.py).
 """
 
 from __future__ import annotations
@@ -35,15 +31,9 @@ from .types import CollectionConfig, DistanceMetric, SearchResult, as_f32_matrix
 
 STORE_FILE = "collection.fpvt"
 
-# ANN kinds of the JAX package not ported yet, with their ROADMAP item
-ANN_NOT_PORTED = {"graph": "graph ANN (ROADMAP queue A item 16)"}
 # the recall knobs of each ANN kind: an explicit one turns auto-tune off
-_ANN_KNOBS = {"ivf": ("nprobe",), "ivfpq": ("nprobe", "rerank")}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet: {item}")
+_ANN_KNOBS = {"ivf": ("nprobe",), "ivfpq": ("nprobe", "rerank"),
+              "graph": ("beam", "iters")}
 
 
 def _host(q) -> np.ndarray:
@@ -77,7 +67,7 @@ class Collection:
         self._ids_arr_version = -1
         self._quantized = None  # optional quantized scan (quant/scan.py)
         self._quant_kwargs: dict = {}  # its build recipe, for rebuilds
-        self._ann = None  # optional ANN index (ann/ivf.py, ann/ivfpq.py)
+        self._ann = None  # optional ANN index (ann/: IVF, IVF-PQ, graph)
         self._rebuild_thread: Optional[threading.Thread] = None
         self._row_epoch = 0  # bumped by row renumbering (compact/load)
         self._serving_mode: Optional[str] = None
@@ -710,26 +700,34 @@ class Collection:
                   tune_target: float = 0.95, tune_queries: int = 32,
                   **kwargs) -> None:
         """Build an approximate index: ``"ivf"`` (ann/ivf.py), whose large
-        batches go through the grouped cell-score kernels, or ``"ivfpq"``
-        (ann/ivfpq.py, PQ-coded residual cells, the grouped ADC kernel).
-        ``"graph"`` is not ported yet.
+        batches go through the grouped cell-score kernels, ``"ivfpq"``
+        (ann/ivfpq.py, PQ-coded residual cells, the grouped ADC kernel) or
+        ``"graph"`` (ann/graph_ann.py, a k-NN graph and a batched beam
+        search; it warns, as the JAX package does).
 
         By default (``tune=None``) corpora >= 4096 rows with none of the
         kind's recall knobs given (ivf: ``nprobe``; ivfpq: ``nprobe`` or
-        ``rerank``) tune them against the exact scan on sampled corpus rows
-        right after the build — ``tune_nprobe`` for IVF, the joint
-        ``tune`` for IVF-PQ (the JAX package's behaviour; those
-        self-queries find themselves, so pass held-out queries to the
-        index's tuner where recall matters).  ``tune=False`` skips it."""
-        if kind in ANN_NOT_PORTED:
-            raise _not_ported(f"build_ann(kind={kind!r})",
-                              ANN_NOT_PORTED[kind])
+        ``rerank``; graph: ``beam`` or ``iters``) tune them against the
+        exact scan on sampled corpus rows right after the build —
+        ``tune_nprobe`` for IVF, the joint ``tune`` for IVF-PQ and the
+        graph (the JAX package's behaviour; those self-queries find
+        themselves, so pass held-out queries to the index's tuner where
+        recall matters).  ``tune=False`` skips it."""
         if kind not in _ANN_KNOBS:
             raise ValueError(f"unknown ANN kind {kind!r}")
+        if kind == "graph":
+            import warnings
+            warnings.warn(
+                "build_ann(kind='graph') is experimental: its beam search "
+                "runs `iters` dependent rounds of gathers and sorts, and "
+                "measured slower than kind='ivf' on an H100 (PERF.md); "
+                "prefer kind='ivf'", stacklevel=2)
         if kind == "ivf":
             from ..ann.ivf import IVFIndex as index_cls
-        else:
+        elif kind == "ivfpq":
             from ..ann.ivfpq import IVFPQIndex as index_cls
+        else:
+            from ..ann.graph_ann import GraphANN as index_cls
         with self._lock:
             self._ann = index_cls.build(self, **kwargs)
             # drift-triggered rebuilds reuse the caller's build parameters
@@ -747,12 +745,13 @@ class Collection:
                 if qs is not None:
                     if kind == "ivf":
                         self._ann.tune_nprobe(qs, target_recall=tune_target)
-                    else:
+                    else:  # ivfpq and graph expose a joint .tune()
                         self._ann.tune(qs, target_recall=tune_target)
 
     def set_search_params(self, **params) -> None:
         """Set the ANN index's recall/latency knobs at runtime (IVF and
-        IVF-PQ: ``nprobe``, ``rerank``)."""
+        IVF-PQ: ``nprobe``, ``rerank``; graph: ``beam``, ``expand``,
+        ``iters``, ``n_init``)."""
         with self._lock:
             if self._ann is None:
                 raise ValueError("no ANN index built; call build_ann first")
@@ -772,12 +771,13 @@ class Collection:
 
         Candidates: the exact scan (recall 1.0 by construction), the
         quantized two-stage scan (built with its auto-tune if absent and
-        ``build=True``) and an IVF / IVF-PQ index already built.  Recall
-        is measured against the exact f32 scan.  Each mode gets a roofline
-        estimate (``core/costmodel.py``, amortized over ``serving_batch``);
-        on the card every candidate, warm from the recall pass, is also
-        timed once between two ``torch.cuda.synchronize()`` calls, and the
-        measured time ranks.  On the CPU the model ranks.
+        ``build=True``) and an IVF / IVF-PQ / graph index already built.
+        Recall is measured against the exact f32 scan.  Each mode gets a
+        roofline estimate (``core/costmodel.py``, amortized over
+        ``serving_batch``); on the card every candidate, warm from the
+        recall pass, is also timed once between two
+        ``torch.cuda.synchronize()`` calls, and the measured time ranks.
+        On the CPU the model ranks.
 
         Returns ``{mode: {recall, bytes_per_query, cost_us_model,
         cost_us_measured (card only), eligible}}`` plus ``installed``."""
@@ -838,25 +838,37 @@ class Collection:
             if self._ann is not None and not self._ann.stale:
                 _, rows = self._ann.search(qs, k)
                 rec = recall_at_k(rows, oracle)
-                nlist = self._ann.stats()["nlist"]
-                pq_k = 0
-                if hasattr(self._ann, "codes"):   # IVF-PQ: M bytes a row
-                    cell_b = int(self._ann.codes.shape[2])
-                    pq_k = int(self._ann.codebooks.shape[1])
-                elif self._ann.quantizer is not None:   # int8 cells
-                    cell_b = d
-                else:
-                    cell_b = store_b * d
-                nprobe = self._ann.nprobe
-                frac = min(1.0, nprobe / max(nlist, 1))
-                over = int(self._ann.overflow_rows.shape[0])
-                rr = self._ann.rerank
-                amc = cm.ivf_cost(n, d, cell_b, nlist, nprobe, over,
-                                  store_b, rr * k, serving_batch, pq_k=pq_k)
+                st = self._ann.stats()
+                if st["kind"] == "graph":
+                    # the beam search: iters * expand * degree gathered
+                    # rows a query (the term counts beam * that, as the
+                    # JAX package's does)
+                    a = self._ann
+                    amc = cm.graph_cost(d, store_b, a.beam, a.iters,
+                                        a.expand, st["degree"])
+                    ann_b = float(a.iters * a.expand * st["degree"] * d
+                                  * store_b + a.beam * d * store_b)
+                else:   # the IVF family: probed fraction + overflow
+                    nlist = st["nlist"]
+                    pq_k = 0
+                    if hasattr(self._ann, "codes"):   # IVF-PQ: M bytes a row
+                        cell_b = int(self._ann.codes.shape[2])
+                        pq_k = int(self._ann.codebooks.shape[1])
+                    elif self._ann.quantizer is not None:   # int8 cells
+                        cell_b = d
+                    else:
+                        cell_b = store_b * d
+                    nprobe = self._ann.nprobe
+                    frac = min(1.0, nprobe / max(nlist, 1))
+                    over = int(self._ann.overflow_rows.shape[0])
+                    rr = self._ann.rerank
+                    amc = cm.ivf_cost(n, d, cell_b, nlist, nprobe, over,
+                                      store_b, rr * k, serving_batch,
+                                      pq_k=pq_k)
+                    ann_b = float((frac * n + over) * cell_b
+                                  + rr * k * d * store_b)
                 report["ann"] = {
-                    "recall": round(rec, 4),
-                    "bytes_per_query": float((frac * n + over) * cell_b
-                                             + rr * k * d * store_b),
+                    "recall": round(rec, 4), "bytes_per_query": ann_b,
                     "cost_us_model": amc.cost_us,
                     "eligible": rec >= target_recall}
                 runners["ann"] = lambda: self._ann.search(qs, k)

@@ -130,11 +130,13 @@ def ivf_cost(n: int, d: int, cell_bytes: float, nlist: int, nprobe: int,
 
 def graph_cost(d: int, store_bytes: int, beam: int, iters: int,
                expand: int, degree: int) -> ModeCost:
-    """Serial beam search: ``iters`` data-dependent rounds, each gathering
-    ``beam*expand`` neighbour lists then ``beam*expand*degree`` candidate
-    rows; the serial chain is modeled as one ``SERIAL_DISPATCH`` a round.
-    (No graph index exists in the port yet; the term is kept for the
-    report's shape and the parity tests.)"""
+    """Serial beam search (ann/graph_ann.py, the cost of the graph kind in
+    ``Collection.optimize``): ``iters`` data-dependent rounds, the serial
+    chain modeled as one ``SERIAL_DISPATCH`` a round.  The formula is the
+    JAX package's and counts ``beam*expand*degree`` gathered rows a round;
+    the search gathers ``expand*degree`` a round (the neighbour lists of
+    the E entries it expands), so the term over-counts by ``beam``
+    (a reference-side defect, kept so the two packages agree)."""
     rows = float(iters) * beam * expand * degree
     return ModeCost(stream_bytes=0.0, flops=2.0 * rows * d,
                     rate=TENSOR_RATE["bfloat16"], gather_rows=rows,

@@ -2,19 +2,20 @@
 
 A collection's state is plain numpy arrays, lists and JSON meta: the
 ``vectors`` / ``valid`` arrays of ``DeviceVectorStore.export_arrays()``, the
-``ann_*`` sections of ``IVFIndex`` / ``IVFPQIndex.export_sections()``, the
-``quant_*`` sections of ``QuantizedScan.export_sections()``, and the
-``ids`` / ``metadata`` / ``config`` sections a collection saves.  Both packages
-write exactly that into their FPVT containers, so one function turns it
-into a port ``Collection`` — for a file on disk (``Collection._load``) and
-for state handed over in memory (``collection_from_sections``).
+``ann_*`` sections of ``IVFIndex`` / ``IVFPQIndex`` /
+``GraphANN.export_sections()``, the ``quant_*`` sections of
+``QuantizedScan.export_sections()``, and the ``ids`` / ``metadata`` /
+``config`` sections a collection saves.  Both packages write exactly that
+into their FPVT containers, so one function turns it into a port
+``Collection`` — for a file on disk (``Collection._load``) and for state
+handed over in memory (``collection_from_sections``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .core.collection import ANN_NOT_PORTED, Collection
+from .core.collection import Collection
 from .core.store import DeviceVectorStore
 from .core.types import CollectionConfig
 
@@ -26,18 +27,16 @@ def restore_into(col: Collection, meta: dict, sections: dict) -> None:
     ``vmin``/``scale``) is carried across through ``IVFIndex.from_sections``,
     an ``"ivfpq"`` one (centroids, codebooks, PQ codes and reconstruction
     norms, row table, overflow rows, nprobe, rerank) through
-    ``IVFPQIndex.from_sections``; the graph kind is not ported and raises
-    rather than be dropped, which would change what ``search()`` serves.
-    Quantized snapshots of every kind (int8 / int4 ``vmin``/``scale``,
-    binary thresholds, pq codebooks) come across through
-    ``QuantizedScan.from_sections``."""
+    ``IVFPQIndex.from_sections``, a ``"graph"`` one (neighbour table,
+    routing centroids and medoids, beam / expand / iters / n_init) through
+    ``GraphANN.from_sections``.  Quantized snapshots of every kind (int8 /
+    int4 ``vmin``/``scale``, binary thresholds, pq codebooks) come across
+    through ``QuantizedScan.from_sections``."""
     ann_meta = meta.get("ann")
-    if ann_meta and ann_meta.get("kind") not in ("ivf", "ivfpq"):
-        kind = ann_meta.get("kind")
-        raise NotImplementedError(
-            f"this collection holds an ANN index section (kind={kind!r}), "
-            "which is not ported to the PyTorch package yet: "
-            f"{ANN_NOT_PORTED.get(kind, 'see ROADMAP queue A')}")
+    if ann_meta and ann_meta.get("kind") not in ("ivf", "ivfpq", "graph"):
+        # dropping the section would change what search() serves
+        raise ValueError(
+            f"unknown ANN index kind {ann_meta.get('kind')!r} in the file")
     cfg = CollectionConfig.from_dict(meta["config"])
     col.config = cfg
     valid = np.asarray(sections["valid"], dtype=bool)
@@ -55,8 +54,10 @@ def restore_into(col: Collection, meta: dict, sections: dict) -> None:
     if ann_meta:
         if ann_meta["kind"] == "ivf":
             from .ann.ivf import IVFIndex as index_cls
-        else:
+        elif ann_meta["kind"] == "ivfpq":
             from .ann.ivfpq import IVFPQIndex as index_cls
+        else:
+            from .ann.graph_ann import GraphANN as index_cls
         col._ann = index_cls.from_sections(
             col, {k: v for k, v in sections.items() if k.startswith("ann_")},
             ann_meta)

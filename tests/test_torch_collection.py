@@ -251,18 +251,27 @@ def test_collection_from_sections():
 
 
 def test_unported_paths_raise_and_keep_ann_data(tmp_path):
-    # a graph ANN section (not ported) refuses to load rather than be
-    # dropped
-    (jdb, jc), _, _, _ = _pair("l2", tmp_path / "j")
+    # every path is ported now: a JAX file with a graph ANN section opens
+    # with its index (kept, not dropped) and serves it, and the port builds
+    # the graph kind itself
+    (jdb, jc), _, _, q = _pair("l2", tmp_path / "j")
     with pytest.warns(UserWarning):
         jc.build_ann("graph", r=8, n_entries=16, tune=False)
     jdb.save()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.VectorDB(tmp_path / "j", device="cpu")
+    tj = T.VectorDB(tmp_path / "j", device="cpu")["c"]
+    assert tj.config.index == "graph" and tj._ann is not None
+    assert np.array_equal(tj._ann.neighbors.numpy(),
+                          np.asarray(jc._ann.neighbors))
+    _same(jc.search_arrays(q, k=10), tj.search_arrays(q, k=10))
+    g = T.VectorDB(None, device="cpu").create_collection("g", dimensions=4)
+    pts = np.random.default_rng(0).standard_normal((40, 4)).astype(np.float32)
+    g.insert_batch(pts, [f"p{i}" for i in range(40)])
+    with pytest.warns(UserWarning, match="graph"):
+        g.build_ann(kind="graph", r=8)
+    assert g.config.index == "graph" and g._ann.stats()["nodes"] == 40
+    assert g.search(pts[7], k=1, exact=False)[0].id == "p7"
     tc = T.VectorDB(None, device="cpu").create_collection("x", dimensions=4)
     tc.insert(np.ones(4, np.float32), "a")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.build_ann(kind="graph")
     # the WAL, optimize, prewarm, the stream and the sharded searcher are
     # ported: none raises
     _, rows = tc.as_sharded_searcher().search(np.ones((1, 4), np.float32), 1)

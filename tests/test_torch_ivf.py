@@ -447,10 +447,20 @@ def test_padding_rows_never_wrap_to_the_last_row(cell_dtype):
 
 
 def test_unported_ann_kinds_raise():
+    # every ANN kind of the JAX package is ported: the graph kind builds
+    # (with the JAX package's warning) and takes its own knobs; an unknown
+    # kind, and knobs before any index, still raise
     tc = T.VectorDB(None, device="cpu").create_collection("x", dimensions=4)
-    tc.insert(np.ones(4, np.float32), "a")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.build_ann(kind="graph")
+    tc.insert_batch(np.eye(4, dtype=np.float32) + 0.5)
+    with pytest.raises(ValueError):
+        tc.set_search_params(nprobe=4)
+    with pytest.raises(ValueError, match="unknown ANN kind"):
+        tc.build_ann(kind="hnsw")
+    with pytest.warns(UserWarning, match="graph"):
+        tc.build_ann(kind="graph", r=4)
+    assert type(tc._ann).__name__ == "GraphANN"
+    tc.set_search_params(beam=16)
+    assert tc._ann.beam == 16
     with pytest.raises(ValueError):
         tc.set_search_params(nprobe=4)
 

@@ -488,6 +488,28 @@ def test_index_build_endpoints(client):
     assert r.status_code == 400
 
 
+def test_graph_index_build_endpoint(client):
+    # the graph kind through the same route (the build warns, as in the
+    # JAX package), then ANN-mode searches through the HTTP client
+    import httpx
+    rng = np.random.default_rng(2)
+    client.create_collection("gidx", 16, metric="l2")
+    v = rng.standard_normal((600, 16)).astype(np.float32)
+    client.insert_batch("gidx", v, [f"v{i}" for i in range(600)])
+    with pytest.warns(UserWarning, match="graph"):
+        r = httpx.post(f"{client.base_url}/collections/gidx/index",
+                       json={"kind": "graph",
+                             "params": {"r": 8, "n_entries": 32, "beam": 32,
+                                        "iters": 8}}, timeout=120)
+    assert r.status_code == 201, r.text
+    info = r.json()["info"]
+    assert info["kind"] == "graph" and info["nodes"] == 600
+    assert info["degree"] == 8 and info["beam"] == 32
+    for i in (5, 321):
+        res = client.search("gidx", vector=v[i], k=3)
+        assert res["results"][0]["id"] == f"v{i}"
+
+
 def test_websocket_subscribe_message(client, server):
     """Subscription updates over the socket: replayed history filtered by
     the new event-type subscription."""
