@@ -356,7 +356,6 @@ def phase_hamming_kernels(queries, block):
     return out
 
 
-S8_LIBRARY = "torch._int_mm(q_int8, codes.T)"
 # B8 / B9 (B, N, D): B of one to five query tiles; N off the multiples of 4,
 # 8 and 128; D 48 / 100 / 768 (a partial K step, rows that 16-byte copies
 # cannot take); the main path's block
@@ -367,8 +366,8 @@ S8_SHAPES = ((1, 64, 48), (17, 1001, 100), (1024, 4096, 768), (1025, 130, 48),
 
 def check_s8(qi, codes, codes_t=None, label=""):
     """B8 on (N, D) codes and B9 on their transpose against the plain
-    versions, each other and, where it takes the shape, the library call:
-    all bit for bit.  Returns B8's result."""
+    versions, each other and, where it takes the shape, the library call
+    on B8's and on B9's operands: all bit for bit.  Returns B8's result."""
     import torch
     from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
     b, d = qi.shape
@@ -385,6 +384,11 @@ def check_s8(qi, codes, codes_t=None, label=""):
                lambda: s8.s8_scores_tn_plain(qi, codes_t))]
     if b > 16 and d % 8 == 0 and n % 8 == 0:
         others.append(("torch._int_mm", lambda: torch._int_mm(qi, codes.T)))
+        tn_call, tn_label, refusal = s8.s8_tn_library(qi, codes_t)
+        if refusal:
+            log(f"[kernels] torch._int_mm refuses (D, N) codes at B={b} "
+                f"N={n} D={d}{label}: {refusal}")
+        others.append((tn_label, tn_call))
     for name, fn in others:
         other = fn()
         torch.cuda.synchronize()
@@ -410,7 +414,8 @@ def phase_s8_kernels():
         check_s8(rand8((b, d), -127), rand8((n, d), -128))
     log(f"[kernels] s8_scores, s8_scores_tn at {len(S8_SHAPES)} shapes "
         f"{S8_SHAPES}: equal to their plain versions, to each other and "
-        "(where it takes the shape) to torch._int_mm, bit for bit")
+        "(where it takes the shape) to torch._int_mm on B8's and on B9's "
+        "operands, bit for bit")
     b, n, d = 19, 777, 64
     qi, c = rand8((b, d), -127), rand8((n, d), -128)
     for off in (1, 4):
@@ -503,30 +508,41 @@ def s8_main_path(scan, queries):
     codes_t = codes.T.contiguous()
     check_s8(qi, codes, codes_t, " (int8 snapshot)")
     n, d = codes.shape
+    tn_library, tn_label, _ = s8.s8_tn_library(qi, codes_t)
     out = {}
     for name, fn, reps in (
             ("s8_scores", lambda: s8.s8_scores(qi, codes), 5),
             ("s8_scores_tn", lambda: s8.s8_scores_tn(qi, codes_t), 5),
             ("plain", lambda: s8.s8_scores_plain(qi, codes), 1),
             ("plain_tn", lambda: s8.s8_scores_tn_plain(qi, codes_t), 1),
-            ("library", lambda: torch._int_mm(qi, codes.T), 5)):
+            ("library", lambda: torch._int_mm(qi, codes.T), 5),
+            ("library_tn", tn_library, 5),
+            ("two_pass",
+             lambda: s8.s8_scores(qi, codes_t.t().contiguous()), 5)):
         out[name] = cuda_ms(fn, reps=reps)
     del codes_t
     torch.cuda.empty_cache()
     bnd = s8_bound(BATCH, n, d)
     log(f"[kernels] s8_scores / s8_scores_tn main path B={BATCH} N={n} "
-        f"D={d}: equal to plain, to each other and to torch._int_mm; "
+        f"D={d}: equal to plain, to each other and to the library calls; "
         f"kernels {out['s8_scores']:.4f} / {out['s8_scores_tn']:.4f} ms, "
         f"plain {out['plain']:.4f} / {out['plain_tn']:.4f} ms, library "
-        f"{out['library']:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"{out['library']:.4f} ms ({s8.S8_LIBRARY}) / "
+        f"{out['library_tn']:.4f} ms ({tn_label}), B9's two-pass yardstick "
+        f"{out['two_pass']:.4f} ms "
+        f"({s8.S8_TWO_PASS}), bound {bnd['bound_ms']:.4f} ms "
         f"({bnd['bound_by']})")
     s8.LAUNCHES.update({key: 0 for key in s8.LAUNCHES})
-    common = {"max_abs_err": 0.0, "library_ms": out["library"],
-              "library": S8_LIBRARY, "shape": [BATCH, n, d], **bnd}
+    common = {"max_abs_err": 0.0, "shape": [BATCH, n, d], **bnd}
     return {"s8_scores": {"ms": out["s8_scores"], "plain_ms": out["plain"],
-                          **common},
+                          "library_ms": out["library"],
+                          "library": s8.S8_LIBRARY, **common},
             "s8_scores_tn": {"ms": out["s8_scores_tn"],
-                             "plain_ms": out["plain_tn"], **common}}
+                             "plain_ms": out["plain_tn"],
+                             "library_ms": out["library_tn"],
+                             "library": tn_label,
+                             "two_pass_ms": out["two_pass"],
+                             "two_pass": s8.S8_TWO_PASS, **common}}
 
 
 def same_sorted(got, want) -> bool:

@@ -39,6 +39,11 @@
 //     16-byte rows) they are stored from registers instead.  An Op with
 //     TOPC (topc_epilogue.cuh) keeps a running top-c of each query's
 //     scores in place of the epilogue's store, in the staging area's room.
+//     An Op with CODES_DN takes its corpus as a (D, N) byte matrix: a
+//     step's tile is 128 d-rows x 128 corpus rows of it (the TMA
+//     coordinates swap), and with PAIRED_ROWS the consumers' fragment rows
+//     frow, frow + 8 are the adjacent corpus rows of their warp's 16 (the
+//     epilogue writes each accumulator row to that corpus row).
 //
 // setmaxnreg moves registers from the producer to the consumers.  The
 // query operand is a (B, Kp) copy made by the wrapper (bf16 or int8, Kp a
@@ -73,6 +78,26 @@ static_assert(PRODUCERS * kProducerRegs + CONSUMERS * kConsumerRegs <=
 constexpr int OUT_BOX = 32 * 32 * 4;      // one 32 x 32 4-byte TMA store box
 constexpr int HALF = 2 * OUT_BOX;         // a round: 32 queries x 64 rows
 constexpr int STAGING = 2 * HALF;         // a consumer's two staging halves
+
+// an Op's optional hooks (header note): CODES_DN, PAIRED_ROWS
+template <class Op, class = void>
+struct CodesDN : std::false_type {};
+template <class Op>
+struct CodesDN<Op, std::void_t<decltype(Op::CODES_DN)>>
+    : std::integral_constant<bool, Op::CODES_DN> {};
+template <class Op, class = void>
+struct PairedRows : std::false_type {};
+template <class Op>
+struct PairedRows<Op, std::void_t<decltype(Op::PAIRED_ROWS)>>
+    : std::integral_constant<bool, Op::PAIRED_ROWS> {};
+
+// corpus row, of a consumer warpgroup's 64, of accumulator register 4i + e
+// of warp w, lane `lane`
+template <class Op>
+__device__ __forceinline__ int acc_row(int w, int lane, int e) {
+  return PairedRows<Op>::value ? 16 * w + 2 * (lane / 4) + (e >> 1)
+                               : 16 * w + lane / 4 + 8 * (e >> 1);
+}
 
 // shared memory of the scan: two staging tiles, then per stage the query
 // tile, Op's codes and table (Op::STAGE_EXTRA bytes) and two barriers
@@ -134,8 +159,11 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
         if (tma_codes) {
           if (r == 0) {
             mbar_arrive_tx(&full[stage], Op::STAGE_EXTRA);
-            tma_load_2d(st + Q_BYTES, &cmap, &full[stage],
-                        k * Op::KSTEP_ELEMS, (tile / qtiles) * BC);
+            const int c0 = k * Op::KSTEP_ELEMS, c1 = (tile / qtiles) * BC;
+            if constexpr (CodesDN<Op>::value)
+              tma_load_2d(st + Q_BYTES, &cmap, &full[stage], c1, c0);
+            else
+              tma_load_2d(st + Q_BYTES, &cmap, &full[stage], c0, c1);
           } else {
             mbar_arrive(&full[stage]);
           }
@@ -224,17 +252,35 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
           for (int ii = 0; ii < 4; ++ii) {
             const int i = 4 * r + ii;
+            if constexpr (PairedRows<Op>::value) {
+              // registers e and e + 2 are the adjacent corpus rows col,
+              // col + 1: one 8-byte store a query
+              struct alignas(8) Pair { typename Op::Out lo, hi; };
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int qr = 8 * ii + cq + (e & 1);        // query in the box
-              const int col = 16 * w + lane / 4 + 8 * (e >> 1);
-              const float qv = Op::query_value(p, min(m0 + 32 * r + qr,
-                                                      p.B - 1));
-              const typename Op::Out s =
-                  Op::score(p, d[4 * i + e], qv, e < 2 ? cv0 : cv1);
-              *reinterpret_cast<typename Op::Out*>(
-                  buf + (col / 32) * OUT_BOX +
-                  sw128_chunk(qr, (col % 32) / 4) + 4 * (col % 4)) = s;
+              for (int e = 0; e < 2; ++e) {
+                const int qr = 8 * ii + cq + e;            // query in the box
+                const int col = acc_row<Op>(w, lane, 0);
+                const float qv = Op::query_value(p, min(m0 + 32 * r + qr,
+                                                        p.B - 1));
+                *reinterpret_cast<Pair*>(
+                    buf + (col / 32) * OUT_BOX +
+                    sw128_chunk(qr, (col % 32) / 4) + 4 * (col % 4)) =
+                    Pair{Op::score(p, d[4 * i + e], qv, cv0),
+                         Op::score(p, d[4 * i + e + 2], qv, cv1)};
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qr = 8 * ii + cq + (e & 1);      // query in the box
+                const int col = acc_row<Op>(w, lane, e);
+                const float qv = Op::query_value(p, min(m0 + 32 * r + qr,
+                                                        p.B - 1));
+                const typename Op::Out s =
+                    Op::score(p, d[4 * i + e], qv, e < 2 ? cv0 : cv1);
+                *reinterpret_cast<typename Op::Out*>(
+                    buf + (col / 32) * OUT_BOX +
+                    sw128_chunk(qr, (col % 32) / 4) + 4 * (col % 4)) = s;
+              }
             }
           }
           fence_proxy_async();
@@ -253,7 +299,7 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int q = m0 + 8 * i + cq + (e & 1);
-            const int n = n0 + 16 * w + lane / 4 + 8 * (e >> 1);
+            const int n = n0 + acc_row<Op>(w, lane, e);
             if (q < p.B && n < p.N)
               p.out[(size_t)q * p.N + n] = Op::score(
                   p, d[4 * i + e], Op::query_value(p, q), e < 2 ? cv0 : cv1);
@@ -268,9 +314,10 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // Launch scan_kernel<Op> over the (B, N) output.  `q` is the (B, kp)
 // query copy of `qtype` (bf16 or 8-bit), kp a multiple of one K step.
-// `corpus`, if given, is a row-major (N, ccols) byte matrix whose (BC rows x
-// 128 bytes) tiles are a stage's whole extra in the 128-byte swizzle, with
-// 16-byte-aligned rows: TMA loads them in place of Op::fetch.  Returns a
+// `corpus`, if given, is a row-major (N, ccols) byte matrix ((ccols, N)
+// for a CODES_DN Op) whose (BC rows x 128 bytes) tiles are a stage's whole
+// extra in the 128-byte swizzle, with 16-byte-aligned rows: TMA loads them
+// in place of Op::fetch.  Returns a
 // cudaError_t as int: the last error after the launch, or the reason the
 // launch was refused.
 template <class Op>
@@ -285,10 +332,12 @@ int launch(const void* q, CUtensorMapDataType qtype, int elem_bytes, int kp,
   CUtensorMap qmap, omap, cmap = {};
   if (!encode_2d(&qmap, qtype, elem_bytes, q, p.B, kp, BQ, kstep))
     return int(cudaErrorInvalidValue);
+  // (N, ccols), or (ccols, N) for a CODES_DN Op: 128 x 128-byte boxes
+  const int crows = CodesDN<Op>::value ? ccols : p.N;
   if (corpus != nullptr &&
       (Op::STAGE_EXTRA != BC * ROW_BYTES ||
-       !encode_2d(&cmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, corpus, p.N, ccols,
-                  BC, ROW_BYTES)))
+       !encode_2d(&cmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, corpus, crows,
+                  CodesDN<Op>::value ? p.N : ccols, BC, ROW_BYTES)))
     return int(cudaErrorInvalidValue);
   // the output goes out by TMA where its rows are whole 16-byte units (a
   // top-c scan stores none)

@@ -9,9 +9,10 @@
 // mask and a running top-c in its epilogue (S8TopcOp below), so that the
 // (B, N) block is never written.
 // One templated kernel (hopper_scan.cuh's scan_kernel with S8Op); the two
-// entries differ only in how the producer brings a corpus tile into shared
-// memory.  The Pallas grid's "N a multiple of the tile" rule is not carried
-// over: any B, N and D are taken and the ragged edges are masked here.
+// entries differ only in the corpus tile's layout and how the consumers
+// read their fragments from it.  The Pallas grid's "N a multiple of the
+// tile" rule is not carried over: any B, N and D are taken and the ragged
+// edges are masked here.
 //
 // What it computes, per (query b, corpus row n):
 //   out[b, n] = sum_d q[b, d] * c[n, d]
@@ -29,26 +30,41 @@
 // (hopper_scan.cuh), with the corpus rows as wgmma's M side, taken from
 // registers.  The wrapper hands over a (B, Kp) int8 query copy (zero past
 // D, Kp a multiple of 128), which TMA loads into a 4-stage ring of swizzled
-// tiles.  Beside each query tile the producer warpgroup lays the step's
-// corpus tile, 128 rows x 128 code bytes, and the consumers read their A
-// fragments from it one 4-byte word a register.  A row is 128 bytes, so
-// the eight rows that a warp reads together would fall on the same banks:
-// both layouts swizzle the tile so that these loads, and the producer's
-// stores, touch 32 different banks.
-//   (N, D): the tile is one TMA load a step beside the query tile's, in
-//     TMA's 128-byte swizzle (chunk c of row r at place c ^ (r & 7)); rows
-//     and dims past N and D arrive as zeros.  Copying it with cp.async, a
-//     row a thread, cost 1.2 of 2.7 ms at the main path's shape.  Rows
-//     whose pitch or base is not a multiple of 16 bytes are loaded and
-//     stored a byte at a time by the producer threads, in the same layout.
-//   (D, N): wgmma takes 8-bit operands K-major only, so the tile is
-//     transposed on the way in.  Eight lanes read one d-row's 128
-//     contiguous n-bytes (16 bytes a lane), a thread holds four d-rows of
-//     its 16 corpus rows, transposes the four 4 x 4 byte blocks with byte
-//     permutes and stores 16 words, one to each of its corpus rows.  The
-//     swizzle of this layout is keyed on bits 0-2 and 4-6 of the row,
-//     which keeps those stores (rows 16 apart across the lanes) on
-//     different banks as well.
+// tiles.  Beside each query tile lies the step's corpus tile, 128 corpus
+// rows x 128 code bytes, one TMA load a step in TMA's 128-byte swizzle
+// (16-byte chunk c of a tile row r at place c ^ (r & 7)); rows and dims
+// past N and D arrive as zeros.  Rows that TMA cannot address (a pitch or
+// a base off the 16-byte boundary) are loaded a byte at a time by the
+// producer threads into the same layout.  The consumers read their A
+// fragments from the tile:
+//   (N, D): a tile row is a corpus row, and a fragment register is one
+//     4-byte word of it.  The swizzle puts the eight rows a warp reads at
+//     once on 32 different banks.  Copying the tile with cp.async, a row
+//     a thread, cost 1.2 of 2.7 ms at the main path's shape.
+//   (D, N): a tile row is a d-row (128 d-rows x 128 corpus bytes: the TMA
+//     box swaps its coordinates), and wgmma takes 8-bit operands K-major
+//     only, so the tile is transposed on chip, inside the fragment load:
+//     the M order is free, so fragment rows frow, frow + 8 are made two
+//     adjacent corpus rows, whose bytes at a d-row form one 16-bit word;
+//     one ldmatrix.x4.trans a slice gathers a lane's 16 such words (four
+//     8 x 8 matrices of d-rows; see S8Op::fragment for the order that
+//     keeps them off each other's banks) and four byte permutes make its
+//     four registers.  That is the same four shared-memory wavefronts a
+//     warp and slice as the (N, D) loads, so the transpose, done anew for
+//     each of the B / 256 query tiles, costs no more than B8's fragment
+//     loads; the epilogue writes accumulator rows +0 / +8 to those two
+//     corpus rows (one 8-byte staging store a query).
+//     The first design had the producer warpgroup transpose each
+//     tile on the way in: synchronous 16-byte __ldg loads (two rounds a K
+//     step, four loads in flight a thread, at 40 registers), twelve byte
+//     permutes and sixteen scattered 4-byte shared stores a thread, for
+//     every query tile of every corpus tile (3.2 GB of transposing for
+//     0.81 GB of codes at B = 1024).  The producer set the pace: 5.83-5.90
+//     ms (26% of the bound), about 3.96 us a K step against 1.38 for
+//     (N, D) (H100 80GB HBM3, 700 W; PERF.md).  A transpose in shared
+//     memory (the raw tile by TMA into a second buffer, which cost the
+//     fourth stage, turned K-major by the producer warpgroup) came to
+//     2.56-2.61 ms against this design's 2.06-2.13 in the same runs.
 // The epilogue stores the accumulators as they are through a swizzled
 // staging tile with TMA.
 
@@ -62,32 +78,36 @@ struct S8Op {
   using Out = int;
   static constexpr CUtensorMapDataType OUT_TYPE = CU_TENSOR_MAP_DATA_TYPE_INT32;
   static constexpr int KSTEP_ELEMS = 128;   // int8 a step
-  static constexpr int CODE_BYTES = 128;    // a row a step
+  static constexpr int CODE_BYTES = 128;    // a tile row a step
   static constexpr int STAGE_EXTRA = fpv::BC * CODE_BYTES;
   static constexpr int STAGES = 4;
+  // (D, N): the tile is 128 d-rows x 128 corpus bytes, and fragment rows
+  // frow, frow + 8 are adjacent corpus rows (hopper_scan.cuh)
+  static constexpr bool CODES_DN = TN;
+  static constexpr bool PAIRED_ROWS = TN;
 
   struct Params {
     int B, N;
     int* out;             // (B, N)
     const uint8_t* codes; // (N, D), or (D, N) for TN
     int D;
-    int vec;              // aligned rows: TMA tiles (N, D), 16-byte loads (D, N)
+    int vec;              // rows TMA can address: 16-byte pitch and base
   };
 
-  // byte offset in the stage's corpus tile of 4-byte word `wi` (0..31) of
-  // corpus row `r` (0..127)
+  // byte offset in the stage's (N, D) corpus tile of 4-byte word `wi`
+  // (0..31) of corpus row `r` (0..127): TMA's 128-byte swizzle
   static __device__ __forceinline__ int word_off(int r, int wi) {
-    const int key = TN ? (r & 7) ^ ((r >> 4) & 7) : (r & 7);
-    return r * CODE_BYTES + (((wi >> 2) ^ key) << 4) + ((wi & 3) << 2);
+    return r * CODE_BYTES + (((wi >> 2) ^ (r & 7)) << 4) + ((wi & 3) << 2);
   }
 
-  // bring K step k of the tile whose row r is corpus row n into the stage,
-  // zero past D or N (false: no copy went by cp.async)
+  // bring K step k of the tile whose row r is corpus row n into the stage
+  // where TMA cannot (a pitch or a base off the 16-byte boundary), zero
+  // past D or N, in the layout TMA would have made (chunk c of tile row r
+  // at c ^ (r & 7)); false: no copy went by cp.async
   static __device__ __forceinline__ bool fetch(const Params& p, uint8_t* ex,
                                                int r, int n, int k) {
-    if (TN) return fetch_tn(p, ex, r, n - r, k);
-    // (N, D) rows that TMA cannot address (a pitch or a base off the
-    // 16-byte boundary): thread r loads row n a byte at a time
+    if (TN) return fetch_dn(p, ex, r, n - r, k);
+    // (N, D): thread r loads row n a byte at a time
     const int b0 = k * CODE_BYTES;
     const uint8_t* src = p.codes + (size_t)n * p.D + b0;
     uint8_t* row = ex + r * CODE_BYTES;
@@ -106,74 +126,81 @@ struct S8Op {
     return false;
   }
 
-  // the (D, N) layout: the step's tile is 32 d-blocks (4 d-rows each) x 8
-  // groups of 16 corpus rows; lane r % 8 takes group r % 8 of d-blocks
-  // 16 i + r / 8 (i = 0, 1) of the tile that starts at corpus row n0
-  static __device__ __forceinline__ bool fetch_tn(const Params& p, uint8_t* ex,
-                                                  int r, int n0, int k) {
-    const int row = 16 * (r % 8);
-    const int n = n0 + row;
+  // (D, N): thread r loads d-row k * 128 + r of the tile that starts at
+  // corpus row n0, a byte at a time (the chunk loop rolled: unrolled, it
+  // spilled the producer's loop state at its 40 registers)
+  static __device__ __forceinline__ bool fetch_dn(const Params& p,
+                                                  uint8_t* ex, int r, int n0,
+                                                  int k) {
+    const int dr = k * KSTEP_ELEMS + r;
+    const uint8_t* src = p.codes + (size_t)dr * p.N + n0;
+    uint8_t* row = ex + r * CODE_BYTES;
 #pragma unroll 1
-    for (int i = 0; i < 2; ++i) {
-      const int blk = 16 * i + r / 8;
-      const int d0 = k * KSTEP_ELEMS + 4 * blk;
-      uint32_t w[4][4];   // [d-row][4 corpus rows]
+    for (int c = 0; c < 8; ++c) {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (dr < p.D) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint8_t* src = p.codes + (size_t)(d0 + e) * p.N + n;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (d0 + e < p.D && n < p.N) {
-          if (p.vec) {
-            v = __ldg(reinterpret_cast<const uint4*>(src));
-          } else {
-            uint32_t b[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-            for (int j = 0; j < 16; ++j)
-              if (n + j < p.N)
-                b[j / 4] |= uint32_t(__ldg(src + j)) << (8 * (j % 4));
-            v = make_uint4(b[0], b[1], b[2], b[3]);
-          }
-        }
-        w[e][0] = v.x;
-        w[e][1] = v.y;
-        w[e][2] = v.z;
-        w[e][3] = v.w;
+        for (int j = 0; j < 16; ++j)
+          if (n0 + 16 * c + j < p.N)
+            w[j / 4] |= uint32_t(__ldg(src + 16 * c + j)) << (8 * (j % 4));
       }
-      // 4 x 4 byte transposes: word j of sub-block c = the four d-bytes of
-      // corpus row n + 4c + j
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const uint32_t t0 = __byte_perm(w[0][c], w[1][c], 0x5140);
-        const uint32_t t1 = __byte_perm(w[2][c], w[3][c], 0x5140);
-        const uint32_t t2 = __byte_perm(w[0][c], w[1][c], 0x7362);
-        const uint32_t t3 = __byte_perm(w[2][c], w[3][c], 0x7362);
-        const int rc = row + 4 * c;
-        *reinterpret_cast<uint32_t*>(ex + word_off(rc, blk)) =
-            __byte_perm(t0, t1, 0x5410);
-        *reinterpret_cast<uint32_t*>(ex + word_off(rc + 1, blk)) =
-            __byte_perm(t0, t1, 0x7632);
-        *reinterpret_cast<uint32_t*>(ex + word_off(rc + 2, blk)) =
-            __byte_perm(t2, t3, 0x5410);
-        *reinterpret_cast<uint32_t*>(ex + word_off(rc + 3, blk)) =
-            __byte_perm(t2, t3, 0x7632);
-      }
+      *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
     return false;
   }
 
   // the A fragment of slice kk (code bytes 32kk .. 32kk + 31 of the step)
-  // for rows frow, frow + 8: a[0] / a[1] bytes 4q .. 4q + 3 of each row's
-  // slice, a[2] / a[3] bytes 16 + 4q .. (q = lane % 4)
+  // for M rows frow, frow + 8 (frow = 64g + 16w + lane / 4): a[0] / a[1]
+  // bytes 4q .. 4q + 3 of each row's slice, a[2] / a[3] bytes 16 + 4q ..
+  // (q = lane % 4)
   static __device__ __forceinline__ void fragment(const Params&,
                                                   const uint8_t* ex, int frow,
                                                   int lane, int kk,
                                                   uint32_t (&a)[4], float&,
                                                   float&) {
-    const int wi = 8 * kk + lane % 4;
-    a[0] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow, wi));
-    a[1] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow + 8, wi));
-    a[2] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow, wi + 4));
-    a[3] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow + 8, wi + 4));
+    if constexpr (!TN) {
+      // (N, D): M row = corpus row, one 4-byte word a register
+      const int wi = 8 * kk + lane % 4;
+      a[0] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow, wi));
+      a[1] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow + 8, wi));
+      a[2] = *reinterpret_cast<const uint32_t*>(ex + word_off(frow, wi + 4));
+      a[3] = *reinterpret_cast<const uint32_t*>(
+          ex + word_off(frow + 8, wi + 4));
+    } else {
+      // (D, N), straight from the raw tile: M rows frow, frow + 8 are the
+      // corpus rows 2i, 2i + 1 (i = lane / 4) of the warp's 16, which are
+      // chunk frow / 16 of every d-row; their two bytes at one d-row are
+      // one 16-bit word.  One ldmatrix.x4.trans loads four 8 x 8 matrices
+      // of such words, each row a d-row's chunk, and hands lane (i, q)
+      // word i of matrix rows 2q, 2q + 1 of each.  Matrices 0 / 1 hold
+      // d-rows 4q + {0, 1} and 4q + {2, 3} of the slice's first 16, 2 / 3
+      // the same of its last 16, swapped for q >= 2 so that the eight rows
+      // of a matrix fall on eight different swizzle keys (d and d + 8
+      // share one): no bank conflict.  Byte permutes then gather each
+      // corpus row's four d-bytes into a register.
+      const int m = lane / 8, j = lane % 8, qq = j / 2;
+      const int e = 16 * (m >> 1) + 4 * qq + 2 * ((m & 1) ^ (qq >> 1)) +
+                    (j & 1);                 // d-row this lane addresses
+      const uint32_t addr = fpv::smem_u32(ex) + 32 * kk * CODE_BYTES +
+                            e * CODE_BYTES + (((frow / 16) ^ (e & 7)) << 4);
+      uint32_t r0, r1, r2, r3;
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+          "[%4];\n"
+          : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+          : "r"(addr)
+          : "memory");
+      // r0 bytes: (d0, 2i), (d0, 2i + 1), (d0 + 1, 2i), (d0 + 1, 2i + 1)
+      // with d0 = 4q (q < 2) or 4q + 2 (q >= 2); r1 the other pair
+      const bool swap = (lane % 4) >= 2;
+      const uint32_t even = swap ? 0x2064u : 0x6420u;
+      const uint32_t odd = swap ? 0x3175u : 0x7531u;
+      a[0] = __byte_perm(r0, r1, even);
+      a[1] = __byte_perm(r0, r1, odd);
+      a[2] = __byte_perm(r2, r3, even);
+      a[3] = __byte_perm(r2, r3, odd);
+    }
   }
 
   static __device__ __forceinline__ void mma(int (&d)[128],
@@ -311,9 +338,9 @@ int launch(const void* q, const void* codes, void* out, int B, int N, int D,
   p.D = D;
   const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
   p.vec = ((TN ? N : D) % 16) == 0 && (base % 16) == 0;
-  // row-major codes with aligned rows come tile by tile through TMA
+  // codes with aligned rows come tile by tile through TMA
   return fpv::launch<Op>(q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kp, p, stream,
-                         (!TN && p.vec) ? codes : nullptr, D);
+                         p.vec ? codes : nullptr, D);
 }
 
 }  // namespace

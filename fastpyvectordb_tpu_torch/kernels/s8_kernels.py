@@ -131,6 +131,34 @@ def s8_scores_tn(qi: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     return _launch("s8_scores_tn", qi, codes_t, n, d)
 
 
+# The PyTorch calls that B8's and B9's kernels are timed against
+# (``chip_smoke.py``, ``tools/kernel_ab.py``, ``tools/kernel_variants.py``);
+# no path of the package calls them.  B9's is on its own (D, N) operands,
+# or the nearest call where cuBLASLt refuses that layout; B9's two-pass
+# yardstick is the transposing copy and ``s8_scores`` on it.
+S8_LIBRARY = "torch._int_mm(q_int8, codes.T)"
+S8_TN_LIBRARY = "torch._int_mm(q_int8, codes_t)"
+S8_TN_NEAREST = ("torch._int_mm(q_int8, codes_t.t().contiguous().t()), the "
+                 "transposing copy included")
+S8_TWO_PASS = "codes_t.t().contiguous() + s8_scores"
+
+
+def s8_tn_library(qi: torch.Tensor, codes_t: torch.Tensor):
+    """B9's library call on its own operands: ``torch._int_mm`` on the
+    contiguous (D, N) codes or, where that layout is refused (cuBLASLt
+    refuses it at some shapes), the nearest call: the transposing copy,
+    then ``torch._int_mm`` on its (D, N) view.  Returns (the call, its
+    label, the refusal's first line or None)."""
+    try:
+        torch._int_mm(qi, codes_t)
+        if qi.is_cuda:
+            torch.cuda.synchronize()
+        return (lambda: torch._int_mm(qi, codes_t)), S8_TN_LIBRARY, None
+    except RuntimeError as err:
+        return (lambda: torch._int_mm(qi, codes_t.t().contiguous().t()),
+                S8_TN_NEAREST, str(err).splitlines()[0])
+
+
 def folded_epilogue(cross: torch.Tensor, qscale: torch.Tensor,
                     const: torch.Tensor, qstat: Optional[torch.Tensor],
                     rstat: Optional[torch.Tensor], metric) -> torch.Tensor:

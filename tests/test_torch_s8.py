@@ -96,42 +96,118 @@ def test_plain_versions_are_exact_at_any_shape(b, n, d):
         assert np.array_equal(got.numpy().astype(np.int64), want)
 
 
-def _swizzled_word(tn, r, wi):
+def _swizzled_word(r, wi):
     """csrc/s8_scores.cu ``S8Op::word_off`` / 4: where 4-byte word ``wi`` of
-    corpus row ``r`` of a tile lies in the stage."""
-    key = (r & 7) ^ ((r >> 4) & 7) if tn else r & 7
-    return r * 32 + (((wi >> 2) ^ key) << 2) + (wi & 3)
+    row ``r`` of a stage's corpus tile lies, in words.  TMA's 128-byte
+    swizzle, in which the producer's byte-by-byte path lays rows too.  A
+    tile row is a corpus row's 128 code bytes of a K step for (N, D) codes
+    and a d-row of the step over the tile's 128 corpus rows for (D, N)."""
+    return r * 32 + (((wi >> 2) ^ (r & 7)) << 2) + (wi & 3)
+
+
+_LANE = np.arange(32)
+
+
+def _ldmatrix_offsets(chunk):
+    """``S8Op<true>::fragment``: the byte offset in the stage's (D, N) tile,
+    at slice 0, of the matrix row that each lane hands ``ldmatrix.x4``, for
+    the warp whose 16 corpus rows are 16-byte chunk ``chunk`` of every
+    d-row (slice kk adds 32 kk d-rows)."""
+    m, j = _LANE // 8, _LANE % 8
+    qq = j // 2
+    e = 16 * (m >> 1) + 4 * qq + 2 * ((m & 1) ^ (qq >> 1)) + (j & 1)
+    return e * 128 + ((chunk ^ (e & 7)) << 4)
+
+
+def _ldmatrix_x4_trans(stage, offs):
+    """``ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16``: row j of matrix m
+    is the 16 bytes at ``offs[8 m + j]``; lane (i = lane / 4, q = lane % 4)
+    gets in register m 16-bit word i of rows 2q (low half) and 2q + 1."""
+    rows = stage[offs[:, None] + np.arange(16)].view(np.uint16)   # (32, 8)
+    i, q = _LANE // 4, _LANE % 4
+    return [rows[8 * m + 2 * q, i].astype(np.uint32)
+            | (rows[8 * m + 2 * q + 1, i].astype(np.uint32) << 16)
+            for m in range(4)]
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm(x, y, sel)`` a lane each (selectors < 8)."""
+    src = [(x >> (8 * t)) & 0xFF for t in range(4)] + \
+          [(y >> (8 * t)) & 0xFF for t in range(4)]
+    src = np.stack(src, axis=1)                                    # (32, 8)
+    out = np.zeros(32, dtype=np.uint32)
+    for t in range(4):
+        out |= src[_LANE, (sel >> (4 * t)) & 7] << (8 * t)
+    return out
+
+
+def _tn_fragments(stage, chunk, kk):
+    """``S8Op<true>::fragment``: each lane's four A registers of slice kk,
+    (32, 4) uint32."""
+    r0, r1, r2, r3 = _ldmatrix_x4_trans(
+        stage, _ldmatrix_offsets(chunk) + 32 * kk * 128)
+    swap = (_LANE % 4) >= 2
+    even = np.where(swap, 0x2064, 0x6420)
+    odd = np.where(swap, 0x3175, 0x7531)
+    return np.stack([_byte_perm(r0, r1, even), _byte_perm(r0, r1, odd),
+                     _byte_perm(r2, r3, even), _byte_perm(r2, r3, odd)], 1)
+
+
+def _acc_row(tn, w, lane, e):
+    """csrc/hopper_scan.cuh ``acc_row``: the corpus row, of a consumer
+    warpgroup's 64, of accumulator register 4i + e (``PAIRED_ROWS`` for
+    (D, N))."""
+    return (16 * w + 2 * (lane // 4) + (e >> 1) if tn
+            else 16 * w + lane // 4 + 8 * (e >> 1))
 
 
 def _emulate_kernel(qi, codes, tn):
     """The CUDA kernel's data path on the CPU: the wrapper's query copy, K
-    step by K step; each (128-row, 128-byte) corpus tile laid into the
-    stage through the layout's swizzle as the producer lays it (the (D, N)
-    layout in transposed 4 x 4 byte blocks) and read back a fragment word
-    at a time as the consumers read it."""
+    step by K step; each step's (128-row, 128-byte) corpus tile laid into
+    the stage through TMA's swizzle (for (D, N) codes the raw tile: d-rows
+    over corpus rows), and read back as the consumers read it: a fragment
+    word a register for (N, D); for (D, N) the ldmatrix.x4.trans gathers
+    and byte permutes of each lane, whose fragment rows +0 / +8 are the
+    corpus rows the epilogue writes them to."""
     qk = s8.kernel_query(qi).numpy().astype(np.int64)
     c = codes.numpy()
     n, d = (c.shape[1], c.shape[0]) if tn else c.shape
     out = np.zeros((qi.shape[0], n), dtype=np.int64)
+    r, wi = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
+    places = _swizzled_word(r, wi)
     for n0 in range(0, n, 128):
+        rows = min(128, n - n0)
         for k in range(qk.shape[1] // s8.KSTEP):
-            stage = np.zeros(128 * 32, dtype=np.uint32)
-            tile = np.zeros((128, 128), dtype=np.uint8)   # [row][byte]
-            rows = min(128, n - n0)
+            tile = np.zeros((128, 128), dtype=np.uint8)   # [tile row][byte]
             cols = max(0, min(128, d - 128 * k))
-            blk = c[128 * k:128 * k + cols, n0:n0 + rows].T if tn \
-                else c[n0:n0 + rows, 128 * k:128 * k + cols]
-            tile[:rows, :cols] = blk.view(np.uint8)
-            words = tile.view(np.uint32)                  # [row][word]
-            for r in range(128):
-                for wi in range(32):
-                    stage[_swizzled_word(tn, r, wi)] = words[r, wi]
-            back = np.empty((128, 32), dtype=np.uint32)
-            for r in range(128):
-                for wi in range(32):
-                    back[r, wi] = stage[_swizzled_word(tn, r, wi)]
-            a = back.view(np.int8).astype(np.int64)[:rows]
-            out[:, n0:n0 + rows] += qk[:, 128 * k:128 * k + 128] @ a.T
+            if tn:
+                tile[:cols, :rows] = c[128 * k:128 * k + cols,
+                                       n0:n0 + rows].view(np.uint8)
+            else:
+                tile[:rows, :cols] = c[n0:n0 + rows,
+                                       128 * k:128 * k + cols].view(np.uint8)
+            stage = np.zeros(128 * 32, dtype=np.uint32)
+            stage[places] = tile.view(np.uint32)
+            if not tn:
+                a = stage[places].view(np.int8).reshape(128, 128)
+            else:
+                # a[corpus row][k byte], from each warp's fragments
+                a = np.zeros((128, 128), dtype=np.int8)
+                for g in range(2):
+                    for w in range(4):
+                        for kk in range(4):
+                            frag = _tn_fragments(stage.view(np.uint8),
+                                                 4 * g + w, kk).view(np.int8)
+                            frag = frag.reshape(32, 4, 4)   # lane, reg, byte
+                            for lane in range(32):
+                                q = lane % 4
+                                for reg in range(4):
+                                    row = 64 * g + _acc_row(True, w, lane,
+                                                            2 * (reg % 2))
+                                    k0 = 32 * kk + 16 * (reg // 2) + 4 * q
+                                    a[row, k0:k0 + 4] = frag[lane, reg]
+            out[:, n0:n0 + rows] += (qk[:, 128 * k:128 * k + 128]
+                                     @ a[:rows].astype(np.int64).T)
     return out
 
 
@@ -139,37 +215,125 @@ def _emulate_kernel(qi, codes, tn):
 @pytest.mark.parametrize("d", [48, 100, 128, 300])
 def test_kernel_query_pads_and_swizzles_cover_the_tile(tn, d):
     """``kernel_query``: zero past D up to a multiple of the K step, no
-    more than one step of padding; and the stage layouts of both entries
-    are permutations of the tile (every word has one place), whose bank
-    pattern is conflict-free for a warp's fragment loads and, in the (D, N)
-    layout, for its transposed stores."""
+    more than one step of padding; and the stage layout (TMA's swizzle) is
+    a permutation of the tile (every word has one place), whose bank
+    pattern is conflict-free for the producer's byte-by-byte row stores
+    and the consumers' fragment loads: a warp's 4-byte words for (N, D),
+    each 8 x 8 matrix of ldmatrix.x4.trans for (D, N).  The emulated data
+    path rebuilds the kernel's output bit for bit."""
     q, c = _data(13, 300, d, seed=d)
     tq, tc = torch.as_tensor(q), torch.as_tensor(c)
     qk = s8.kernel_query(tq)
     assert qk.dtype == torch.int8 and qk.is_contiguous()
     assert qk.shape[1] % s8.KSTEP == 0 and 0 <= qk.shape[1] - d < s8.KSTEP
     assert torch.equal(qk[:, :d], tq) and (qk[:, d:] == 0).all()
-    places = {_swizzled_word(tn, r, wi) for r in range(128)
-              for wi in range(32)}
+    places = {_swizzled_word(r, wi) for r in range(128) for wi in range(32)}
     assert places == set(range(128 * 32))
-    # a warp's fragment load: rows base + 0..7, words w0 + 0..3
-    for base in range(0, 128, 8):
-        for w0 in range(0, 32, 4):
-            banks = {_swizzled_word(tn, base + g, w0 + x) % 32
-                     for g in range(8) for x in range(4)}
+    # the producer's ragged path: thread r stores 16-byte chunk c of tile
+    # row r; a phase of eight lanes covers the 32 banks
+    for c0 in range(8):
+        for base in range(0, 128, 8):
+            banks = {(_swizzled_word(base + x, 4 * c0) + t) % 32
+                     for x in range(8) for t in range(4)}
             assert len(banks) == 32
     if tn:
-        # a warp's transposed store: corpus rows 16 (lane % 8) + j of the
-        # four d-blocks w0 + lane // 8
-        for j in range(16):
+        for chunk in range(8):
+            offs = _ldmatrix_offsets(chunk)
+            for m in range(4):
+                banks = {(o // 4 + t) % 32 for o in offs[8 * m:8 * m + 8]
+                         for t in range(4)}
+                assert len(banks) == 32, (chunk, m)
+    else:
+        # a warp's fragment load: rows base + 0..7, words w0 + 0..3
+        for base in range(0, 128, 8):
             for w0 in range(0, 32, 4):
-                banks = {_swizzled_word(True, 16 * (lane % 8) + j,
-                                        w0 + lane // 8) % 32
-                         for lane in range(32)}
+                banks = {_swizzled_word(base + g, w0 + x) % 32
+                         for g in range(8) for x in range(4)}
                 assert len(banks) == 32
     want = s8.s8_scores_plain(tq, tc).numpy()
     codes = tc.T.contiguous() if tn else tc
     assert np.array_equal(_emulate_kernel(tq, codes, tn), want)
+
+
+def test_tn_fragments_are_the_transposed_tile():
+    """On a tile of distinct bytes, each lane's (D, N) fragment register
+    holds the four d-bytes of its corpus row that wgmma's A layout asks
+    for: register j of lane (i, q) in warp w row 16 w + 2i + j % 2, d-rows
+    32 kk + 16 (j // 2) + 4q .. + 3 (the bytes differ from the (N, D)
+    layout's only by the tile's transpose)."""
+    rng = np.random.default_rng(7)
+    tile = rng.integers(0, 256, (128, 128), dtype=np.uint8)   # [d][corpus]
+    r, wi = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
+    stage = np.zeros(128 * 32, dtype=np.uint32)
+    stage[_swizzled_word(r, wi)] = tile.view(np.uint32)
+    for chunk in range(8):
+        for kk in range(4):
+            frag = _tn_fragments(stage.view(np.uint8), chunk, kk)
+            for lane in range(32):
+                i, q = lane // 4, lane % 4
+                for j in range(4):
+                    col = 16 * chunk + 2 * i + j % 2
+                    d0 = 32 * kk + 16 * (j // 2) + 4 * q
+                    want = tile[d0:d0 + 4, col].copy().view(np.uint32)[0]
+                    assert frag[lane, j] == want, (chunk, kk, lane, j)
+
+
+@pytest.mark.parametrize("w", range(4))
+def test_tn_epilogue_pair_stores_cover_the_box_conflict_free(w):
+    """csrc/hopper_scan.cuh, ``PAIRED_ROWS``: a consumer warp stores the
+    accumulator registers e, e + 2 of a query as one 8-byte word at corpus
+    rows col, col + 1 of the staging box; over a round's four register
+    groups and two query parities each (query, row) of the warp's 32 x 16
+    lands once, and each half-warp's store covers the 32 banks."""
+    out_box = 32 * 32 * 4
+    seen = set()
+    for ii in range(4):
+        for e in range(2):
+            words = []
+            for lane in range(32):
+                qr = 8 * ii + 2 * (lane % 4) + e
+                col = _acc_row(True, w, lane, 0)
+                assert col % 2 == 0 and _acc_row(True, w, lane, 2) == col + 1
+                off = ((col // 32) * out_box + qr * 128
+                       + ((((col % 32) // 4) ^ (qr & 7)) << 4)
+                       + 4 * (col % 4))
+                words.append(off // 4)
+                seen |= {(qr, col), (qr, col + 1)}
+            for half in (words[:16], words[16:]):
+                banks = {(x + t) % 32 for x in half for t in range(2)}
+                assert len(banks) == 32, (ii, e)
+    assert seen == {(qr, 16 * w + x) for qr in range(32) for x in range(16)}
+
+
+def test_tn_library_is_int_mm_on_the_dn_codes():
+    """``s8_tn_library``, B9's library yardstick: ``torch._int_mm`` on the
+    contiguous (D, N) codes where that layout is taken, equal to the plain
+    version."""
+    q, c = _data(32, 64, 64, seed=9)
+    tq, tct = torch.as_tensor(q), torch.as_tensor(c.T.copy())
+    call, label, refusal = s8.s8_tn_library(tq, tct)
+    assert label == s8.S8_TN_LIBRARY and refusal is None
+    assert torch.equal(call(), s8.s8_scores_tn_plain(tq, tct))
+
+
+def test_tn_library_falls_back_to_the_nearest_call(monkeypatch):
+    """Where ``torch._int_mm`` refuses the contiguous (D, N) codes, the
+    yardstick is the transposing copy and ``torch._int_mm`` on its (D, N)
+    view, labelled so, with the refusal's first line."""
+    q, c = _data(32, 64, 64, seed=10)
+    tq, tct = torch.as_tensor(q), torch.as_tensor(c.T.copy())
+    int_mm = torch._int_mm
+
+    def refusing(a, b):
+        if b.is_contiguous():
+            raise RuntimeError("CUBLAS_STATUS_NOT_SUPPORTED\nmore")
+        return int_mm(a, b)
+
+    monkeypatch.setattr(torch, "_int_mm", refusing)
+    call, label, refusal = s8.s8_tn_library(tq, tct)
+    assert label == s8.S8_TN_NEAREST
+    assert refusal == "CUBLAS_STATUS_NOT_SUPPORTED"
+    assert torch.equal(call(), s8.s8_scores_tn_plain(tq, tct))
 
 
 def test_cpu_tensors_use_plain_version_and_count_nothing():

@@ -7,21 +7,24 @@ earlier version of the same sources, in turns on one CUDA card.
     git show <rev>:fastpyvectordb_tpu_torch/csrc/grouped_cell_scores.cu > build/old/grouped_cell_scores.cu
     git show <rev>:fastpyvectordb_tpu_torch/csrc/grouped_cell_scores_pq.cu > build/old/grouped_cell_scores_pq.cu
     git show <rev>:fastpyvectordb_tpu_torch/csrc/s8_scores.cu > build/old/s8_scores.cu
+    git show <rev>:fastpyvectordb_tpu_torch/csrc/hopper_scan.cuh > build/old/hopper_scan.cuh
+    (the same for hopper_common.cuh and topc_epilogue.cuh)
     python3 tools/kernel_ab.py build/old
 
 Only the kernels whose earlier source lies in the directory are timed.  The
-earlier scan sources are those whose C entry points take the f32 queries
-(``fpv_sq_scores`` / ``fpv_int4_scores``: q, codes, vmin, rscale, qsq, out,
-B, N, width, metric, stream) and the packed query words
-(``fpv_hamming_*``: q, codes, out, B, N, W, stream); the earlier grouped
-sources are the first-slice kernels (``fpv_grouped_cell_scores[_i8]`` as
-now; ``fpv_grouped_cell_scores_pq`` without the scratch argument).  Each is
-built with the port's own nvcc flags; an earlier ``s8_scores.cu`` has
-today's entry points (``fpv_s8_scores[_tn]``: q copy, codes, out, B, N, D,
-kp, stream) and is built beside the headers it was written for if
-``hopper_scan.cuh`` / ``hopper_common.cuh`` lie in the directory too, else
-beside today's.  Shapes: s8_scores and s8_scores_tn at the int8 two-stage
-path's B=1024 x 1,048,576 x 768 (beside ``torch._int_mm``), int4_scores and
+earlier scan sources (``quant_scores.cu``, ``hamming_scores.cu``,
+``s8_scores.cu``) have today's entry points and are timed through today's
+wrappers with the library swapped; the earlier grouped sources are the
+first-slice kernels (``fpv_grouped_cell_scores[_i8]`` as now;
+``fpv_grouped_cell_scores_pq`` without the scratch argument).  Each is
+built with the port's own nvcc flags, beside the headers it was written
+for where ``hopper_scan.cuh`` / ``hopper_common.cuh`` /
+``topc_epilogue.cuh`` lie in the directory too, else beside today's.
+Shapes: s8_scores and s8_scores_tn at the int8 two-stage path's B=1024 x
+1,048,576 x 768 (beside ``torch._int_mm`` on B8's and on
+B9's operands, ``s8_kernels.s8_tn_library``, and B9's two-pass yardstick,
+the transposing copy and ``s8_scores``), ``s8_topc`` at the same shape
+(cosine, c = 40, 90% of rows unmasked; through the wrapper), int4_scores and
 hamming_mxu_scores at the two-stage paths' B=1024 x 1M rows x 768 dims,
 sq_scores and hamming_scores at a B=1024 x 65,536-row block, on random rows
 made on the card from a fixed seed; grouped_cell_scores (bf16 cells, nprobe
@@ -31,12 +34,15 @@ and IVF-PQ paths make for one B=1024 batch on its 1M x 768 corpus
 (``main_path_operands``); cosine.  Each pair is timed old, new, new, old
 (CUDA events, mean of ``REPS`` launches after a warm-up) and checked to
 agree; grouped_cell_scores also beside its library call, ``torch.bmm`` of
-cells gathered beforehand.  Prints one line a kernel and, last, the card's
+cells gathered beforehand.  It first prints, for each earlier source, the
+kernels whose SASS (``cuobjdump -sass``) is the same in both builds and
+those whose SASS differs; then one line a kernel and, last, the card's
 nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import subprocess
 import sys
@@ -56,6 +62,85 @@ def build_old(src: Path, out_dir: Path) -> ctypes.CDLL:
                     str(cuda_build.CSRC), "-o", str(so), str(src)],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(so))
+
+
+def old_lib(source, old_dir: Path, out_dir: Path) -> ctypes.CDLL:
+    """The earlier ``source`` (a ``CudaSource``) from ``old_dir``, its entry
+    points bound with today's argument types."""
+    lib = build_old(old_dir / f"{source.name}.cu", out_dir)
+    for fn, argtypes in source.signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def swapped(source, lib):
+    """``source``'s library swapped for ``lib`` inside the block, and the
+    one it had put back after it."""
+    before = source._lib
+    source._lib = lib
+    try:
+        yield
+    finally:
+        source._lib = before
+
+
+def through(source, lib, fn):
+    """``fn`` run with ``source``'s library swapped for ``lib``."""
+    def run():
+        with swapped(source, lib):
+            return fn()
+    return run
+
+
+def unhash(name: str) -> str:
+    """A mangled name without its anonymous namespace's tag
+    (``_GLOBAL__N__<hash>_<n>_<file>_<hash>``), which the source's path
+    sets."""
+    head, sep, rest = name.partition("_GLOBAL__N__")
+    if not sep:
+        return name
+    length, _, tail = rest[9:].partition("_")   # past "<8 hex>_"
+    return head + "_GLOBAL__N_" + unhash(tail[int(length) + 9:])
+
+
+def sass_by_kernel(so: Path) -> dict:
+    """Each kernel's SASS in a built library: {mangled name without its
+    anonymous namespace's tag: text}."""
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = unhash(line.split("Function : ", 1)[1].strip())
+            out[name] = []
+        elif name is not None:
+            out[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def same_sass(old_dir: Path, out_dir: Path) -> None:
+    """For each earlier source in ``old_dir``: which kernels compile to the
+    same SASS as today's and which do not."""
+    from fastpyvectordb_tpu_torch.kernels import cuda_build
+    from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
+    from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
+    from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
+    for source in (qk.SOURCE, hk.SOURCE, s8.SOURCE, ik.SOURCE, ik.SOURCE_PQ):
+        if not (old_dir / f"{source.name}.cu").exists():
+            continue
+        cuda_build.build_all(source)
+        build_old(old_dir / f"{source.name}.cu", out_dir)
+        old = sass_by_kernel(out_dir / f"lib{source.name}_old.so")
+        new = sass_by_kernel(source._so())
+        same = sorted(k for k in new if old.get(k) == new[k])
+        differ = sorted(k for k in new if old.get(k) != new[k])
+        print(f"{source.name}.cu SASS: {len(same)} kernels the same "
+              f"{same}; {len(differ)} differ {differ}", flush=True)
 
 
 def ms(fn) -> float:
@@ -218,7 +303,8 @@ def grouped_in_turns(old_dir: Path, out_dir: Path) -> None:
 
 
 def scans_in_turns(old_dir: Path, out_dir: Path) -> None:
-    """B4, B1, B5 and B6, old against new on random rows."""
+    """B4, B1, B5 and B6, old against new on random rows, through today's
+    wrappers with the library swapped."""
     import torch
     from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
@@ -230,110 +316,88 @@ def scans_in_turns(old_dir: Path, out_dir: Path) -> None:
             and (old_dir / "hamming_scores.cu").exists()):
         return
     cuda_build.build_all(qk.SOURCE, hk.SOURCE)
-    oq = build_old(old_dir / "quant_scores.cu", out_dir)
-    oh = build_old(old_dir / "hamming_scores.cu", out_dir)
-    for fn in ("fpv_sq_scores", "fpv_int4_scores"):
-        getattr(oq, fn).argtypes = [P] * 6 + [I] * 4 + [P]
-    for fn in ("fpv_hamming_mxu_scores", "fpv_hamming_scores"):
-        getattr(oh, fn).argtypes = [P] * 3 + [I] * 3 + [P]
+    libs = {qk.SOURCE: (old_lib(qk.SOURCE, old_dir, out_dir),
+                        qk.SOURCE.load()),
+            hk.SOURCE: (old_lib(hk.SOURCE, old_dir, out_dir),
+                        hk.SOURCE.load())}
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     b, d = 1024, 768
     rows = torch.randn((1_000_000, d), generator=gen, device="cuda")
     queries = torch.randn((b, d), generator=gen, device="cuda")
-    qn = torch.nn.functional.normalize(queries, dim=1)
-    zeros = torch.zeros(b, device="cuda")
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    def old_quant(fn, codes, vmin, rscale, width):
-        def run():
-            out = torch.empty((b, codes.shape[0]), device="cuda")
-            rc = getattr(oq, fn)(qn.data_ptr(), codes.data_ptr(),
-                                 vmin.data_ptr(), rscale.data_ptr(),
-                                 zeros.data_ptr(), out.data_ptr(), b,
-                                 codes.shape[0], width, 0, stream())
-            assert rc == 0, rc
-            return out
-        return run
+    def turns(name, source, fn, tol):
+        old, new = libs[source]
+        in_turns(name, through(source, old, fn), through(source, new, fn),
+                 tol)
 
     i4 = Int4Quantizer()
     i4.train(rows[:65_536])
     packed = i4.encode(rows)
-    in_turns(f"int4_scores B={b} N={packed.shape[0]} D={d}",
-             old_quant("fpv_int4_scores", packed, i4.vmin,
-                       (i4.scale / 15.0).contiguous(), packed.shape[1]),
-             lambda: qk.int4_scores(queries, packed, i4.vmin, i4.scale,
-                                    metric="cosine"), 1e-3)
+    turns(f"int4_scores B={b} N={packed.shape[0]} D={d}", qk.SOURCE,
+          lambda: qk.int4_scores(queries, packed, i4.vmin, i4.scale,
+                                 metric="cosine"), 1e-3)
     del packed
     sq = ScalarQuantizer()
     sq.train(rows[:65_536])
     codes = sq.encode(rows[:65_536])
-    in_turns(f"sq_scores B={b} N={codes.shape[0]} D={d}",
-             old_quant("fpv_sq_scores", codes, sq.vmin,
-                       (sq.scale / 255.0).contiguous(), d),
-             lambda: qk.sq_scores(queries, codes, sq.vmin, sq.scale,
-                                  metric="cosine"), 1e-3)
+    turns(f"sq_scores B={b} N={codes.shape[0]} D={d}", qk.SOURCE,
+          lambda: qk.sq_scores(queries, codes, sq.vmin, sq.scale,
+                               metric="cosine"), 1e-3)
     bq = BinaryQuantizer(device="cuda").train(rows[:65_536])
     qc, words = bq.encode(queries), bq.encode(rows)
-
-    def old_hamming(fn, c, dtype):
-        def run():
-            out = torch.empty((b, c.shape[0]), dtype=dtype, device="cuda")
-            rc = getattr(oh, fn)(qc.data_ptr(), c.data_ptr(), out.data_ptr(),
-                                 b, c.shape[0], c.shape[1], stream())
-            assert rc == 0, rc
-            return out
-        return run
-
-    in_turns(f"hamming_mxu_scores B={b} N={words.shape[0]} "
-             f"W={words.shape[1]}",
-             old_hamming("fpv_hamming_mxu_scores", words, torch.float32),
-             lambda: hk.hamming_mxu_scores(qc, words), 0.0)
+    turns(f"hamming_mxu_scores B={b} N={words.shape[0]} "
+          f"W={words.shape[1]}", hk.SOURCE,
+          lambda: hk.hamming_mxu_scores(qc, words), 0.0)
     block = words[:65_536]
-    in_turns(f"hamming_scores B={b} N={block.shape[0]} W={block.shape[1]}",
-             old_hamming("fpv_hamming_scores", block, torch.int32),
-             lambda: hk.hamming_scores(qc, block), 0.0)
+    turns(f"hamming_scores B={b} N={block.shape[0]} W={block.shape[1]}",
+          hk.SOURCE, lambda: hk.hamming_scores(qc, block), 0.0)
 
 
 def s8_in_turns(old_dir: Path, out_dir: Path) -> None:
-    """B8 and B9, old against new at the int8 path's shape on random
-    codes, and the library call beside them."""
+    """B8, B9 and ``s8_topc``, old against new at the int8 path's shape on
+    random codes, through today's wrappers with the library swapped, and
+    the library calls and B9's two-pass yardstick beside them."""
     import torch
     from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
     if not (old_dir / "s8_scores.cu").exists():
         return
-    s8.SOURCE.load()
-    old = build_old(old_dir / "s8_scores.cu", out_dir)
+    new = s8.SOURCE.load()
+    old = old_lib(s8.SOURCE, old_dir, out_dir)
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, n, d = 1024, 1 << 20, 768
     codes = torch.randint(-128, 128, (n, d), generator=gen, device="cuda",
                           dtype=torch.int8)
     qi = torch.randint(-127, 128, (b, d), generator=gen, device="cuda",
                        dtype=torch.int8)
-    qk_ = s8.kernel_query(qi)
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    def run_old(fn, c):
-        getattr(old, fn).argtypes = s8.SOURCE.signatures[fn]
+    def turns(name, fn, tol=0.0):
+        in_turns(name, through(s8.SOURCE, old, fn),
+                 through(s8.SOURCE, new, fn), tol)
 
-        def run():
-            out = torch.empty((b, n), dtype=torch.int32, device="cuda")
-            rc = getattr(old, fn)(qk_.data_ptr(), c.data_ptr(),
-                                  out.data_ptr(), b, n, d, qk_.shape[1],
-                                  stream())
-            assert rc == 0, rc
-            return out
-        return run
-
-    in_turns(f"s8_scores B={b} N={n} D={d}", run_old("fpv_s8_scores", codes),
-             lambda: s8.s8_scores(qi, codes), 0.0)
-    print(f"s8_scores library (torch._int_mm(q, codes.T)): "
+    turns(f"s8_scores B={b} N={n} D={d}", lambda: s8.s8_scores(qi, codes))
+    print(f"s8_scores library ({s8.S8_LIBRARY}): "
           f"{ms(lambda: torch._int_mm(qi, codes.T)):.4f} ms", flush=True)
+    qscale = torch.rand(b, generator=gen, device="cuda") * 1e-3 + 1e-4
+    const = torch.randn(b, generator=gen, device="cuda")
+    qn = torch.rand(b, generator=gen, device="cuda") * 10 + 1
+    rinv = torch.rand(n, generator=gen, device="cuda") + 0.5
+    mask = torch.rand(n, generator=gen, device="cuda") < 0.9
+    # the sorted values are compared (rows may differ on ties)
+    turns(f"s8_topc B={b} N={n} D={d} cosine c=40",
+          lambda: s8.s8_topc(qi, codes, qscale, const, qn, rinv, mask, c=40,
+                             metric="cosine")[0])
     codes_t = codes.T.contiguous()
     del codes
-    in_turns(f"s8_scores_tn B={b} N={n} D={d}",
-             run_old("fpv_s8_scores_tn", codes_t),
-             lambda: s8.s8_scores_tn(qi, codes_t), 0.0)
+    turns(f"s8_scores_tn B={b} N={n} D={d}",
+          lambda: s8.s8_scores_tn(qi, codes_t))
+    call, label, refusal = s8.s8_tn_library(qi, codes_t)
+    if refusal:
+        print(f"torch._int_mm refuses (D, N) codes: {refusal}", flush=True)
+    print(f"s8_scores_tn library ({label}): {ms(call):.4f} ms; two-pass "
+          f"yardstick ({s8.S8_TWO_PASS}): "
+          f"{ms(lambda: s8.s8_scores(qi, codes_t.t().contiguous())):.4f} ms",
+          flush=True)
 
 
 def main(old_dir: str) -> None:
@@ -342,6 +406,7 @@ def main(old_dir: str) -> None:
         raise SystemExit("kernel_ab: needs a CUDA card")
     out_dir = ROOT / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+    same_sass(Path(old_dir), out_dir)
     grouped_in_turns(Path(old_dir), out_dir)
     torch.cuda.empty_cache()
     scans_in_turns(Path(old_dir), out_dir)

@@ -10,8 +10,11 @@
 The Hopper scan: time ``int4_scores`` and ``hamming_mxu_scores`` at the
 two-stage paths' B=1024 x 1M x 768 with parts of ``csrc/hopper_scan.cuh``
 switched off.  ``s8``: the same variants of ``s8_scores`` and
-``s8_scores_tn`` at the int8 two-stage path's B=1024 x 1M x 768, beside the
-library call ``torch._int_mm``.
+``s8_scores_tn`` at the int8 two-stage path's B=1024 x 1M x 768, beside
+B8's library call ``torch._int_mm(q, codes.T)``, B9's on its own (D, N)
+operands (``s8_tn_library``) and B9's two-pass yardstick (the transposing
+copy ``codes_t.t().contiguous()`` and ``s8_scores`` on it); the base
+build's B9 output is checked against ``s8_scores``.
 
 Each variant is a copy of ``csrc/`` under ``build/kernel_variants/<name>``
 with one or more lines replaced (the outputs of such a copy are wrong; only
@@ -82,8 +85,11 @@ STORE = """              tma_store_2d(&omap, buf, n0, m0 + 32 * r);
 CODES = """        if (tma_codes) {
           if (r == 0) {
             mbar_arrive_tx(&full[stage], Op::STAGE_EXTRA);
-            tma_load_2d(st + Q_BYTES, &cmap, &full[stage],
-                        k * Op::KSTEP_ELEMS, (tile / qtiles) * BC);
+            const int c0 = k * Op::KSTEP_ELEMS, c1 = (tile / qtiles) * BC;
+            if constexpr (CodesDN<Op>::value)
+              tma_load_2d(st + Q_BYTES, &cmap, &full[stage], c1, c0);
+            else
+              tma_load_2d(st + Q_BYTES, &cmap, &full[stage], c0, c1);
           } else {
             mbar_arrive(&full[stage]);
           }
@@ -170,8 +176,18 @@ def time_variant(name: str, rnd: str, which: str) -> None:
         lib_ms = ms(lambda: torch._int_mm(qi, codes.T))
         codes_t = codes.T.contiguous()
         t9 = ms(lambda: s8.s8_scores_tn(qi, codes_t))
+        tn_lib, tn_label, _ = s8.s8_tn_library(qi, codes_t)
+        tn_lib_ms = ms(tn_lib)
+        two_ms = ms(lambda: s8.s8_scores(qi, codes_t.t().contiguous()))
+        check = ""
+        if name == "base":
+            same = torch.equal(s8.s8_scores_tn(qi, codes_t),
+                               s8.s8_scores(qi, codes))
+            check = "  B9 equal to B8" if same else "  B9 DIFFERS from B8"
         print(f"round {rnd} {name:18s} s8_scores {t8:.4f} ms  s8_scores_tn "
-              f"{t9:.4f} ms  torch._int_mm {lib_ms:.4f} ms", flush=True)
+              f"{t9:.4f} ms  torch._int_mm {lib_ms:.4f} ms  B9 library "
+              f"{tn_lib_ms:.4f} ms ({tn_label})  two-pass {two_ms:.4f} ms"
+              f"{check}", flush=True)
         return
     rows = torch.randn((1_000_000, 768), generator=gen, device="cuda")
     q = torch.randn((1024, 768), generator=gen, device="cuda")
