@@ -42,8 +42,16 @@ rows, tunes it on held-out queries, gates its recall@10, times it at
 B=1024 and B=1, traces a batch, runs a search under
 ``torch.cuda.set_sync_debug_mode("error")`` and saves / reopens it; no
 hand kernel stands behind it (no Pallas kernel stands behind the JAX
-graph search), and its launch counts must stay at zero.  Each path's
-kernel launch counts are zeroed just before it and read just after.
+graph search), and its launch counts must stay at zero.  The prime phase
+runs the cold-start primer (``python -m fastpyvectordb_tpu_torch.prime``)
+at 1,048,576 rows: cold in a child process into a fresh ``--cache`` (every
+source built by ``nvcc`` there), warm in a second child on that cache
+(nothing built), and in process with its ``s8_topc`` and
+``hamming_mxu_scores`` launches counted.  The examples phase runs
+``examples_torch/quickstart.py``, ``production_ops.py`` and the news
+demo on the card in child processes and checks their output.  Each
+path's kernel launch counts are zeroed just before it and read just
+after.
 
 Every phase raises on failure, so the exit code is non-zero unless all
 passed.  The last lines are a JSON object of per-kernel numbers (launches
@@ -3492,6 +3500,237 @@ def phase_hybrid(host, queries, results):
     torch.cuda.empty_cache()
 
 
+PRIME_ROWS = 1 << 20          # the primer's default rows (bench.py's size)
+PRIME_WARM_ROWS = 65_536      # the warm run's rows: it builds nothing
+PRIME_ARGS = ("--dims", str(DIMS), "--metric", "cosine", "--modes",
+              "exact,int8,binary", "--max-batch", str(BATCH), "--k", str(K))
+PRIME_SOURCES = ("quant_scores.cu", "grouped_cell_scores.cu",
+                 "grouped_cell_scores_pq.cu", "hamming_scores.cu",
+                 "s8_scores.cu")
+NATIVE_SOURCES = ("bm25.cpp", "graph.cpp")
+
+
+def child_env() -> dict:
+    """The environment of a child that imports the package from this
+    checkout."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH", "")) if p)
+    return env
+
+
+def check_prime_lines(lines, rows: int, cache, built) -> list:
+    """The primer's JSON lines: ``built`` (the sources compiled: ``built``,
+    or with ``built=None`` no ``.cu`` source, and every library loaded),
+    ``filled_rows``, one ``primed`` line a batch bucket (8 ... BATCH) with
+    the rows' power-of-two bucket, ``k`` and the modes, then ``{"cache":
+    ..., "done": true}``; returns each bucket's seconds."""
+    buckets = [8 << i for i in range((BATCH // 8).bit_length())]
+    cap = 1 << (rows - 1).bit_length()
+    head, fill, primed, last = lines[0], lines[1], lines[2:-1], lines[-1]
+    built_ok = (not set(head["built"]) & set(PRIME_SOURCES) if built is None
+                else sorted(head["built"]) == sorted(built))
+    if not built_ok or \
+            sorted(head["loaded"]) != sorted(PRIME_SOURCES + NATIVE_SOURCES):
+        raise AssertionError(f"prime: built / loaded {head}, expected "
+                             f"built {sorted(built)}")
+    if fill.get("filled_rows") != rows:
+        raise AssertionError(f"prime: {fill} is not filled_rows {rows}")
+    want = [{"rows_bucket": cap, "batch_bucket": b, "k": [K],
+             "modes": ["exact", "int8", "binary"]} for b in buckets]
+    if [ln.get("primed") for ln in primed] != want:
+        raise AssertionError(f"prime: bucket lines {primed}")
+    if cache is not None and last != {"cache": str(cache), "done": True}:
+        raise AssertionError(f"prime: last line {last}")
+    return [ln["s"] for ln in primed]
+
+
+def prime_child(cache: Path, rows: int, built) -> dict:
+    """``python -m fastpyvectordb_tpu_torch.prime`` in a child process with
+    ``--cache cache``; checks every line and the libraries in the cache."""
+    cmd = [sys.executable, "-m", "fastpyvectordb_tpu_torch.prime",
+           *PRIME_ARGS, "--rows", str(rows), "--cache", str(cache)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=child_env(), capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"prime child exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.strip()]
+    bucket_s = check_prime_lines(lines, rows, cache.resolve(), built)
+    for kind, n in (("kernels", len(PRIME_SOURCES)),
+                    ("native", len(NATIVE_SOURCES))):
+        libs = sorted((cache / kind).glob("lib*.so"))
+        if len(libs) != n:
+            raise AssertionError(f"prime: {cache / kind} holds {libs}")
+    return {"wall_s": wall, "build_s": lines[0]["s"],
+            "fill_s": lines[1]["s"], "bucket_s": bucket_s}
+
+
+def b5_launches(scan, b: int) -> int:
+    """``hamming_mxu_scores`` launches of a binary search of ``b`` queries:
+    the scan splits a batch whose (B, N) score block would pass its budget
+    into power-of-two sub-batches (``QuantizedScan.search``; N counts the
+    codes' padded rows)."""
+    n = int(scan.codes.shape[0])
+    cap = max(8, int(scan._score_hbm_budget // (max(n, 1) * 4)))
+    sub = 8
+    while sub * 2 <= cap:
+        sub *= 2
+    return -(-b // sub)
+
+
+def phase_prime(tmpdir: Path, results):
+    """The cold-start primer (``fastpyvectordb_tpu_torch/prime.py``) at the
+    full corpus size: a cold child into a fresh ``--cache`` (every
+    ``csrc/*.cu`` built by ``nvcc`` and both native libraries by g++ in
+    that directory: what a fresh machine pays), a warm child on the same
+    cache that builds nothing, then an in-process run at 1,048,576 rows
+    whose int8 and binary searches are counted: one ``s8_topc`` launch a
+    bucket and k, one ``hamming_mxu_scores`` a score-block sub-batch, and
+    no ``s8_scores``.
+    The zero corpus's answers are checked (every score tied, rows valid
+    and distinct) and the re-rank auto-tune is run on it once, timed."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from fastpyvectordb_tpu_torch import prime
+
+    torch.cuda.empty_cache()
+    cache = tmpdir / "prime_cache"
+    cold = prime_child(cache, PRIME_ROWS, PRIME_SOURCES + NATIVE_SOURCES)
+    warm = prime_child(cache, PRIME_WARM_ROWS, ())
+    log(f"[prime] {nvidia_smi_line()}: cold child {cold['wall_s']:.2f} s "
+        f"(nvcc + g++ {cold['build_s']} s into a fresh cache, fill "
+        f"{PRIME_ROWS} rows {cold['fill_s']} s, buckets "
+        f"{cold['bucket_s']} s); warm child at {PRIME_WARM_ROWS} rows "
+        f"{warm['wall_s']:.2f} s (built nothing; build step "
+        f"{warm['build_s']} s, buckets {warm['bucket_s']} s)")
+
+    n_buckets = len(cold["bucket_s"])
+    zero_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        prime.main([*PRIME_ARGS, "--rows", str(PRIME_ROWS)])
+    wall = time.perf_counter() - t0
+    launches = nonzero_launches()
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    bucket_s = check_prime_lines(lines, PRIME_ROWS, None, None)
+    build_s, fill_s = lines[0]["s"], lines[1]["s"]
+
+    # the same fill again: its answers on the zero corpus, the launches its
+    # scans' routes take, and the tune a primer skips
+    col = prime.filled_collection(PRIME_ROWS, DIMS, "cosine", "bfloat16",
+                                  "cuda")
+    scans = {kind: col.enable_quantized_scan(kind, tune=False)
+             for kind in ("int8", "binary")}
+    want = {"s8_topc": n_buckets, "hamming_mxu_scores": sum(
+        b5_launches(scans["binary"], 8 << i) for i in range(n_buckets))}
+    if launches != want:
+        raise AssertionError(f"prime: launches {launches}, expected {want} "
+                             "(one fused int8 scan a bucket, B5 once a "
+                             "score-block sub-batch)")
+    q = np.random.default_rng(1).standard_normal((BATCH, DIMS)).astype(
+        np.float32)
+    _, ed, er = col.search_arrays(q, k=K, exact=True)
+    got = {"exact": (ed, er)}
+    for kind, scan in scans.items():
+        got[kind] = scan.search(q, K)
+    tie = float(ed[0, 0])
+    for kind, (d, r) in got.items():
+        d, r = np.asarray(d), np.asarray(r)
+        distinct = all(len(set(row.tolist())) == K for row in r)
+        if d.shape != (BATCH, K) or not np.allclose(d, tie, atol=1e-6) or \
+                r.min() < 0 or r.max() >= PRIME_ROWS or not distinct:
+            raise AssertionError(f"prime: {kind} on the zero corpus gave "
+                                 f"scores {d[:1]} rows {r[:1]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tuned = col.enable_quantized_scan("int8").default_rerank
+    tune_s = time.perf_counter() - t0
+    code_rows = int(scans["binary"].codes.shape[0])
+    del col, scans
+    torch.cuda.empty_cache()
+    results["prime"] = {
+        "gated": False, "rows": PRIME_ROWS, "launches": launches,
+        "cold_child_s": cold["wall_s"], "cold_build_s": cold["build_s"],
+        "cold_fill_s": cold["fill_s"], "cold_bucket_s": cold["bucket_s"],
+        "warm_child_s": warm["wall_s"], "warm_build_s": warm["build_s"],
+        "warm_bucket_s": warm["bucket_s"], "counted_run_s": wall,
+        "counted_build_s": build_s, "counted_fill_s": fill_s,
+        "counted_bucket_s": bucket_s, "code_rows": code_rows,
+        "zero_corpus_tie": tie,
+        "zero_corpus_tuned_rerank": tuned, "zero_corpus_tune_s": tune_s}
+    log(f"[prime] {nvidia_smi_line()}: in-process run at {PRIME_ROWS} rows "
+        f"{wall:.2f} s (build step {build_s} s, fill {fill_s} s), buckets "
+        f"{bucket_s} s, launches {launches} (codes "
+        f"padded to {code_rows} rows); exact, "
+        f"int8 and binary all tied at {tie} on the zero corpus; the int8 "
+        f"auto-tune on it ends at rerank {tuned} in {tune_s:.2f} s")
+
+
+EXAMPLES = (
+    ("quickstart", ["examples_torch/quickstart.py", "--device", "cuda",
+                    "--path", "{tmp}/quickstart"],
+     ("7. SEARCH TIERS", "int8 two-stage", "persisted to {tmp}/quickstart",
+      "cleaned up {tmp}/quickstart")),
+    ("production_ops", ["examples_torch/production_ops.py", "--device",
+                        "cuda", "--base", "{tmp}/production_ops"],
+     ("recovered 99 rows", "corrupted file detected",
+      "python -m fastpyvectordb_tpu_torch.prime",
+      "All production-ops demos passed.")),
+    ("news_intelligence", ["-m", "examples_torch.news_intelligence.demo",
+                           "--articles", "400", "--device", "cuda",
+                           "--db-path", "{tmp}/news", "--fresh"],
+     ("DEMO COMPLETE", "SEARCH DEMONSTRATIONS",
+      "KNOWLEDGE GRAPH DEMONSTRATIONS", "trending entities",
+      "PERSISTENCE ROUNDTRIP",
+      "search works: True")),
+)
+
+
+def run_example(argv, tmpdir: Path):
+    """One example in a child process: (completed process, wall s)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *[a.format(tmp=tmpdir)
+                                            for a in argv]],
+                         cwd=ROOT, env=child_env(), capture_output=True,
+                         text=True, timeout=300)
+    return out, time.perf_counter() - t0
+
+
+def phase_examples(tmpdir: Path, results):
+    """The port's examples (``examples_torch/``) on the card, all three at
+    once, each in a child process from this checkout, their output held to
+    the sentinel strings the CPU tests check."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        runs = [pool.submit(run_example, argv, tmpdir)
+                for _, argv, _ in EXAMPLES]
+        runs = [r.result() for r in runs]
+    total = time.perf_counter() - t0
+    walls = {}
+    for (name, _, sentinels), (out, wall) in zip(EXAMPLES, runs):
+        walls[name] = wall
+        missing = [s.format(tmp=tmpdir) for s in sentinels
+                   if s.format(tmp=tmpdir) not in out.stdout]
+        if out.returncode != 0 or missing:
+            raise AssertionError(
+                f"examples: {name} exited {out.returncode}, missing "
+                f"{missing}:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    results["examples"] = {"gated": False, "together_s": total,
+                           **{f"{n}_s": w for n, w in walls.items()}}
+    log(f"[examples] {nvidia_smi_line()}: wall s "
+        f"{ {n: round(w, 2) for n, w in walls.items()} } (run together, "
+        f"{total:.2f} s in all), every sentinel found")
+
+
 def main() -> int:
     import torch  # noqa: F401 - a missing torch fails here, with no result
     if not (ROOT / "fastpyvectordb_tpu_torch").is_dir():
@@ -3502,6 +3741,8 @@ def main() -> int:
     phase_build()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         kernels, launches, results = phase_main_path(Path(tmp))
+        phase_prime(Path(tmp), results)
+        phase_examples(Path(tmp), results)
     pq, pi = ("fastpyvectordb_tpu/kernels/pallas_quant.py",
               "fastpyvectordb_tpu/kernels/pallas_ivf.py")
     lab = "benchmarks/int8_mxu_lab.py"

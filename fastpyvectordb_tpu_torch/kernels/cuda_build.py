@@ -2,8 +2,8 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, named by a hash of the source, the shared
-headers (``csrc/*.cuh``) and the flags, in
-``<repo>/build/kernels`` (listed in ``.gitignore``), and bound with
+headers (``csrc/*.cuh``) and the flags, in ``<build root>/kernels``
+(``buildroot.py``: ``<repo>/build`` unless set), and bound with
 ``ctypes``.  Nothing is compiled when a module is imported: a wrapper
 calls ``CudaSource.load()`` at its first launch, and ``build_all()`` starts
 one ``nvcc`` per source at once and waits for all of them (the start-up
@@ -25,9 +25,9 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from .. import buildroot
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# <repo>/build/kernels (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # ctypes argument types: a pointer (data_ptr, stream) and a C int
@@ -62,7 +62,7 @@ class CudaSource:
         deps = [self.source, *sorted(CSRC.glob("*.cuh"))]
         tag = hashlib.sha256(b"".join(p.read_bytes() for p in deps)
                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}_{tag}.so"
+        return buildroot.path("kernels") / f"lib{self.name}_{tag}.so"
 
     def _tmp(self) -> Path:
         return self._so().with_suffix(f".{os.getpid()}.tmp")
@@ -76,7 +76,7 @@ class CudaSource:
         if self._lib is not None or self._proc is not None \
                 or self._so().exists():
             return
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self._so().parent.mkdir(parents=True, exist_ok=True)
         self._proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp()), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -11,10 +11,10 @@ host-side runtime:
     property graphs (graphdb/graph.py uses it past a size threshold).
 
 Shared libraries auto-build with g++ on first use into
-``<repo>/build/native`` (listed in ``.gitignore``), named by a hash of the
-source and the flags; without a toolchain ``available()`` /
-``graph_available()`` are False and every caller keeps its pure-Python
-path.  This is host code: the card is not involved.
+``<build root>/native`` (``buildroot.py``: ``<repo>/build`` unless set),
+named by a hash of the source and the flags; without a toolchain
+``available()`` / ``graph_available()`` are False and every caller keeps
+its pure-Python path.  This is host code: the card is not involved.
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import buildroot
+
 _DIR = Path(__file__).parent
-# <repo>/build/native (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 _SRC = _DIR / "bm25.cpp"
 _GRAPH_SRC = _DIR / "graph.cpp"
@@ -55,7 +55,7 @@ def tokenize(text: str) -> List[str]:
 def _so_path(src: Path) -> Path:
     tag = hashlib.sha256(src.read_bytes()
                          + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{tag}.so"
+    return buildroot.path("native") / f"lib{src.stem}_{tag}.so"
 
 
 def _build(src: Path) -> Optional[Path]:
@@ -68,7 +68,7 @@ def _build(src: Path) -> Optional[Path]:
         return out
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)

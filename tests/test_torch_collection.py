@@ -478,6 +478,14 @@ def test_port_never_imports_jax(tmp_path):
             with profiling.annotate("x"):
                 h.search(np.eye(8, dtype=np.float32)[0], k=1)
         assert M.make_mesh(4, device="cpu").shape == {"data": 4}
+        # the cold-start primer and the examples
+        import fastpyvectordb_tpu_torch.prime
+        import examples_torch.news_intelligence.query_cli
+        import examples_torch.demo, examples_torch.hybrid_demo
+        import examples_torch.news_demo, examples_torch.production_ops
+        import examples_torch.quickstart, examples_torch.rag_app
+        import examples_torch.rag_cli, examples_torch.rag_demo
+        import examples_torch.retrieval_quality
         assert not any(m.startswith(("fastpyvectordb_tpu.", "benchmarks"))
                        or m == "fastpyvectordb_tpu" for m in sys.modules)
         assert not any(m in ("jax", "ml_dtypes")
@@ -496,7 +504,7 @@ def test_port_never_imports_jax(tmp_path):
     jax_module = re.compile(r"\bfastpyvectordb_tpu\.\w|"
                             r"\b(from|import)\s+fastpyvectordb_tpu\b(?!_)")
     files = [*(root / "fastpyvectordb_tpu_torch").rglob("*.py"),
-             root / "chip_smoke.py"]
+             *(root / "examples_torch").rglob("*.py"), root / "chip_smoke.py"]
     assert len(files) > 40
     named = [str(f) for f in files if jax_module.search(f.read_text())]
     assert not named, named

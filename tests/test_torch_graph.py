@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from fastpyvectordb_tpu_torch.graphdb import GraphDB
+from torch_parity import jax_native
 
 
 @pytest.fixture()
@@ -354,6 +355,9 @@ def test_same_answers_as_the_jax_package(n_nodes, n_edges):
     native_side = n_edges >= gmod.NATIVE_TRAVERSAL_THRESHOLD
     if native_side and not native.graph_available():
         pytest.skip("no C++ toolchain")
+    if native_side:
+        # the JAX side traverses its own native CSR snapshot too
+        jax_native(graph=True)
     a = _answers(ours, 5, n_nodes)
     b = _answers(theirs, 5, n_nodes)
     assert a.keys() == b.keys()

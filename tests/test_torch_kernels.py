@@ -238,6 +238,7 @@ def test_concurrent_first_loads_share_one_build(tmp_path, monkeypatch):
     import shutil
     import sys
     import threading
+    from fastpyvectordb_tpu_torch import buildroot
     from fastpyvectordb_tpu_torch.kernels import cuda_build
     if shutil.which("g++") is None:
         pytest.skip("the stub compiler needs g++")
@@ -256,7 +257,7 @@ def test_concurrent_first_loads_share_one_build(tmp_path, monkeypatch):
         f'exec g++ -shared -fPIC -o "$out" "{stub_src}"\n')
     nvcc.chmod(0o755)
     monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(buildroot, "_root", tmp_path / "build")
     src = cuda_build.CudaSource("quant_scores", {"fpv_stub": [cuda_build.I]})
     barrier = threading.Barrier(8)
     libs, errors = [None] * 8, []

@@ -9,6 +9,7 @@ import pytest
 
 from fastpyvectordb_tpu.hybrid.bm25 import BM25Index
 from fastpyvectordb_tpu_torch import native
+from torch_parity import jax_native
 
 
 @pytest.fixture(autouse=True)
@@ -212,7 +213,8 @@ def test_libraries_build_under_build_native():
 
 def test_failed_build_makes_the_library_unavailable(monkeypatch, tmp_path):
     # g++ missing (or failing): available() is False, nothing raises
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    from fastpyvectordb_tpu_torch import buildroot
+    monkeypatch.setattr(buildroot, "_root", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_build_failed", False)
@@ -221,11 +223,40 @@ def test_failed_build_makes_the_library_unavailable(monkeypatch, tmp_path):
     assert not native.available() and not native.graph_available()
 
 
+def test_jax_graph_library_reloads_after_a_lost_race():
+    from fastpyvectordb_tpu import native as jnative
+    if jax_native(graph=True) is None:
+        pytest.skip("no C++ toolchain")
+    jnative._graph_lib, jnative._graph_build_failed = None, True
+    assert not jnative.graph_available()
+    assert jax_native(graph=True) is jnative and jnative.graph_available()
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["bm25", "graph"])
+def test_helper_fails_when_only_the_jax_library_is_missing(
+        monkeypatch, tmp_path, graph):
+    # the port's library loads (the autouse fixture), the JAX one cannot
+    # be built: a parity test must fail, not skip or compare against a
+    # Python engine
+    from fastpyvectordb_tpu import native as jnative
+    if graph and not native.graph_available():
+        pytest.skip("no C++ toolchain")
+    pre = "_graph_" if graph else "_"
+    monkeypatch.setattr(jnative, pre + "lib", None)
+    monkeypatch.setattr(jnative, pre + "build_failed", True)
+    monkeypatch.setattr(jnative, "_GRAPH_SO" if graph else "_SO",
+                        tmp_path / "missing.so")
+    monkeypatch.setattr(jnative, "_compile", lambda src, out: False)
+    what = "graph" if graph else "BM25"
+    with pytest.raises(pytest.fail.Exception, match=f"JAX package's {what}"):
+        jax_native(graph=graph, wait=1.0)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_csr_traversal_equals_the_jax_packages(seed):
-    from fastpyvectordb_tpu import native as jnative
-    if not jnative.graph_available():
-        pytest.skip("the JAX package's graph library did not build")
+    jnative = jax_native(graph=True)
+    if jnative is None:
+        pytest.skip("no C++ toolchain")
     rng = np.random.default_rng(seed)
     n, m = 400, 1600
     src = rng.integers(0, n, m)

@@ -4,9 +4,50 @@ numpy inputs."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 MASKED = 3.0e38
+
+
+def jax_native(graph: bool = False, wait: float = 60.0):
+    """The JAX package's ``native`` module with its BM25 (or, with
+    ``graph``, its CSR graph) library loaded, or None where the port's own
+    library does not load either (no C++ toolchain: both packages then run
+    their pure-Python engines).
+
+    The JAX loader compiles straight onto its output file and keeps a
+    failed load (``_build_failed`` / ``_graph_build_failed``) for the life
+    of the process, so a worker that loaded the file while another
+    worker's g++ was rewriting it treats the library as missing from then
+    on.  This clears that flag (by assignment: the JAX package is not
+    edited, and the failed state is not put back) and loads again, polling
+    for up to ``wait`` seconds while the other compiler finishes.  If the
+    port's library loads but the JAX one still does not, the test fails:
+    a parity test against a Python engine on one side only would compare
+    different engines."""
+    import pytest
+
+    from fastpyvectordb_tpu import native as jnative
+    from fastpyvectordb_tpu_torch import native as tnative
+    load = jnative.graph_available if graph else jnative.available
+    deadline = time.monotonic() + wait
+    while not load():
+        if graph:
+            jnative._graph_lib, jnative._graph_build_failed = None, False
+        else:
+            jnative._lib, jnative._build_failed = None, False
+        if time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    else:
+        return jnative
+    if (tnative.graph_available() if graph else tnative.available()):
+        pytest.fail(f"the port's native library loads but the JAX "
+                    f"package's {'graph' if graph else 'BM25'} library did "
+                    f"not within {wait:.0f} s")
+    return None
 
 
 def clustered(rng, n: int, d: int, n_centers: int = 16,
