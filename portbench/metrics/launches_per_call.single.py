@@ -1,0 +1,4 @@
+"""Device kernel launches in the traced window over the calls traced, in
+the single-query cells (an exact count)."""
+
+from portbench.tracing import launches_per_call as read  # noqa: F401
