@@ -29,6 +29,7 @@ import torch
 from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, corpus_stats, mm_f32, smallest_k
 from ..kernels.ivf_kernels import bmm_f32
+from ..profiling import annotate
 from ..quant.kmeans import kmeans_fit
 from ..quant.scalar import ScalarQuantizer, _dequant, _encode, _train
 from ..quant.scan import gather_rerank
@@ -196,13 +197,8 @@ def _ivf_search_kernel(q, centroids, cells, row_table, overflow_vecs,
     b, d = qf.shape
     cmax = cells.shape[1]
     cd = getattr(torch, compute_dtype)
-    probe = probe_cells(route(qf, centroids, metric), nprobe)
-    vecs = cells[probe].reshape(b, nprobe * cmax, d)
-    cand = row_table[probe].reshape(b, -1)
-    ok = ok_cells[probe].reshape(b, -1)
-    vsq = cell_norms[probe].reshape(b, -1)
-    qsq = (qf * qf).sum(dim=1)
-    qinv = 1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30)
+    with annotate("fpv.ann.route"):
+        probe = probe_cells(route(qf, centroids, metric), nprobe)
 
     def metric_scores(vsq, cross):
         if metric == DistanceMetric.COSINE:
@@ -213,37 +209,57 @@ def _ivf_search_kernel(q, centroids, cells, row_table, overflow_vecs,
                                           min=0.0))
         return -cross
 
-    if cells.dtype == torch.int8:
-        # q . dequant(c) = (q * rs) . c + q . (128 rs + vmin): the gathered
-        # block stays codes; norms are the dequantised rows'
-        rs = scale / 255.0
-        const = qf @ (128.0 * rs + vmin)
-        cross = bmm_f32((qf * rs[None, :]).to(cd)[:, None, :],
-                        vecs.to(cd))[:, 0, :] + const[:, None]
-    else:
-        cross = bmm_f32(qf.to(cells.dtype)[:, None, :], vecs)[:, 0, :]
-    s = metric_scores(vsq, cross)
-    o = overflow_rows.shape[0]
-    if o > 0:
-        of = overflow_vecs.float()
-        ocross = mm_f32(qf.to(cd), overflow_vecs.to(cd))
-        s = torch.cat([s, metric_scores((of * of).sum(dim=1)[None, :],
-                                        ocross)], dim=1)
-        cand = torch.cat([cand, overflow_rows[None].expand(b, o)], dim=1)
-        ok = torch.cat([ok, ok_overflow[None].expand(b, o)], dim=1)
-    s = torch.where(ok, s, torch.full((), float(MASKED), device=s.device))
-    if rerank > 0 and vectors is not None:
-        c = int(min(max(k, k * rerank), s.shape[1]))
-        cvals, cpos = smallest_k(s, c)
-        crows = torch.take_along_dim(cand, cpos, dim=1)
-        return gather_rerank(qf, cvals, crows, vectors, metric, min(k, c),
-                             compute_dtype)
-    vals, pos = smallest_k(s, k)
-    return vals, torch.take_along_dim(cand, pos, dim=1)
+    with annotate("fpv.ann.gather_score"):
+        vecs = cells[probe].reshape(b, nprobe * cmax, d)
+        cand = row_table[probe].reshape(b, -1)
+        ok = ok_cells[probe].reshape(b, -1)
+        vsq = cell_norms[probe].reshape(b, -1)
+        qsq = (qf * qf).sum(dim=1)
+        qinv = 1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30)
+        if cells.dtype == torch.int8:
+            # q . dequant(c) = (q * rs) . c + q . (128 rs + vmin): the
+            # gathered block stays codes; norms are the dequantised rows'
+            rs = scale / 255.0
+            const = qf @ (128.0 * rs + vmin)
+            cross = bmm_f32((qf * rs[None, :]).to(cd)[:, None, :],
+                            vecs.to(cd))[:, 0, :] + const[:, None]
+        else:
+            cross = bmm_f32(qf.to(cells.dtype)[:, None, :], vecs)[:, 0, :]
+        s = metric_scores(vsq, cross)
+        o = overflow_rows.shape[0]
+        if o > 0:
+            of = overflow_vecs.float()
+            ocross = mm_f32(qf.to(cd), overflow_vecs.to(cd))
+            s = torch.cat([s, metric_scores((of * of).sum(dim=1)[None, :],
+                                            ocross)], dim=1)
+            cand = torch.cat([cand, overflow_rows[None].expand(b, o)],
+                             dim=1)
+            ok = torch.cat([ok, ok_overflow[None].expand(b, o)], dim=1)
+    with annotate("fpv.ann.finish"):
+        s = torch.where(ok, s, torch.full((), float(MASKED),
+                                          device=s.device))
+        if rerank > 0 and vectors is not None:
+            c = int(min(max(k, k * rerank), s.shape[1]))
+            cvals, cpos = smallest_k(s, c)
+            crows = torch.take_along_dim(cand, cpos, dim=1)
+            return gather_rerank(qf, cvals, crows, vectors, metric,
+                                 min(k, c), compute_dtype)
+        vals, pos = smallest_k(s, k)
+        return vals, torch.take_along_dim(cand, pos, dim=1)
+
+
+def _upload(q: np.ndarray, mult: int, device) -> torch.Tensor:
+    """The queries on the device, padded with zero rows to a multiple of
+    ``mult``."""
+    with annotate("fpv.ann.upload"):
+        q = np.pad(q, ((0, (-q.shape[0]) % mult), (0, 0)))
+        return torch.as_tensor(q).to(device)
 
 
 def _to_numpy(d: torch.Tensor, r: torch.Tensor, real: int):
-    return d[:real].cpu().numpy(), r[:real].to(torch.int32).cpu().numpy()
+    with annotate("fpv.ann.fetch"):
+        return (d[:real].cpu().numpy(),
+                r[:real].to(torch.int32).cpu().numpy())
 
 
 class IVFIndex:
@@ -267,9 +283,15 @@ class IVFIndex:
         self._built_n_valid = collection._store.n_valid
         self.quantizer = None    # set when cells are int8 codes
         self.cell_norms = None   # (nlist, cmax) f32
-        self.last_dropped = 0
+        self._dropped = []       # the last grouped search's shed counts
         self.last_qcap = None
         self._free_bytes = None  # device memory free at the first search
+
+    @property
+    def last_dropped(self) -> int:
+        """Pairs the last grouped search shed where a cell was full.  Kept
+        on the card and read here, so the search never waits for it."""
+        return sum(int(x) for x in self._dropped)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -383,23 +405,22 @@ class IVFIndex:
         sub_max = max(8, (qcap_hbm * nlist) // (4 * nprobe) // 8 * 8)
         vectors = self._collection._store.vectors if rerank > 0 else None
         outs_d, outs_r = [], []
-        self.last_dropped = 0
+        self._dropped = []
         for s in range(0, q.shape[0], sub_max):
             subq = q[s: s + sub_max]
             real = subq.shape[0]
             # zero rows pad to a multiple of 8, as in the JAX package: they
             # take slots too, so the padding is part of the result
-            subq = np.pad(subq, ((0, (-real) % 8), (0, 0)))
-            sub_qcap = (grouped_qcap(subq.shape[0], nprobe, nlist, cmax)
+            sub_qcap = (grouped_qcap(real + (-real) % 8, nprobe, nlist, cmax)
                         if qcap is None else min(qcap, qcap_hbm))
             dd, rr, dropped = grouped_ivf_search_kernel(
-                torch.as_tensor(subq).to(self.device), self.centroids,
-                self.cells, self.row_table, self.overflow_vecs,
-                self.overflow_rows, okc, oko, vmin, scale, cnorms, vectors,
-                metric=cfg.metric, k=min(k, cmax * nprobe), nprobe=nprobe,
+                _upload(subq, 8, self.device), self.centroids, self.cells,
+                self.row_table, self.overflow_vecs, self.overflow_rows, okc,
+                oko, vmin, scale, cnorms, vectors, metric=cfg.metric,
+                k=min(k, cmax * nprobe), nprobe=nprobe,
                 qcap=int(sub_qcap), compute_dtype=cfg.compute_dtype,
                 rerank=rerank)
-            self.last_dropped += int(dropped)
+            self._dropped.append(dropped)
             self.last_qcap = int(sub_qcap)
             d_, r_ = _to_numpy(dd, rr, real)
             outs_d.append(d_)
@@ -414,6 +435,12 @@ class IVFIndex:
                qcap: Optional[int] = None,
                rerank: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
+        with annotate("fpv.ann.search"):
+            return self._search(queries, k, mask, overfetch, nprobe,
+                                max_query_batch, grouped, qcap, rerank)
+
+    def _search(self, queries, k, mask, overfetch, nprobe, max_query_batch,
+                grouped, qcap, rerank) -> Tuple[np.ndarray, np.ndarray]:
         if self.stale:
             self.__dict__.update(self.rebuilt().__dict__)
         q = np.ascontiguousarray(queries, dtype=np.float32)
@@ -452,12 +479,11 @@ class IVFIndex:
         for s in range(0, q.shape[0], max_query_batch):
             sub = q[s: s + max_query_batch]
             real = sub.shape[0]
-            sub = np.pad(sub, ((0, (-real) % min(max_query_batch, 8)),
-                               (0, 0)))
             d, r = _ivf_search_kernel(
-                torch.as_tensor(sub).to(self.device), self.centroids,
-                self.cells, self.row_table, self.overflow_vecs,
-                self.overflow_rows, okc, oko, vmin, scale, cnorms, vectors,
+                _upload(sub, min(max_query_batch, 8), self.device),
+                self.centroids, self.cells, self.row_table,
+                self.overflow_vecs, self.overflow_rows, okc, oko, vmin,
+                scale, cnorms, vectors,
                 metric=cfg.metric, k=min(k, cmax * nprobe), nprobe=nprobe,
                 compute_dtype=cfg.compute_dtype, rerank=rr)
             d_, r_ = _to_numpy(d, r, real)

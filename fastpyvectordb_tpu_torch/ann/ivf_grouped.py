@@ -32,6 +32,7 @@ from ..kernels.distances import MASKED, mm_f32, smallest_k
 from ..kernels.ivf_kernels import (grouped_cell_scores,
                                    grouped_cell_scores_i8,
                                    grouped_cell_scores_plain)
+from ..profiling import annotate
 from ..quant.scan import gather_rerank
 
 __all__ = ["grouped_ivf_search_kernel", "grouped_cell_candidates",
@@ -187,20 +188,26 @@ def grouped_cell_candidates(qf, croute, cells, row_table, ok_cells, vmin,
     cand_rows (B, nprobe*cmax) from row_table, dropped)``."""
     b = qf.shape[0]
     nlist, cmax = row_table.shape
-    pairs = invert_pairs(probe_cells(croute, nprobe), nlist, qcap)
-    fn, args = cell_score_args(qf, pairs, cells, ok_cells, vmin, scale,
-                               cell_norms, metric=metric, qcap=qcap)
-    s = fn(*args, metric=metric)
-    # regroup: each pair's own score row, then one candidate row per query
-    u = s.shape[0]
-    flat_slot = pairs["cid_pair"] * qcap + torch.clamp(pairs["pair_rank"],
-                                                       max=qcap - 1)
-    pv = s.reshape(u * qcap, cmax)[flat_slot]
-    pv = torch.where(pairs["pair_keep"][:, None], pv,
-                     torch.full((), float(MASKED), device=pv.device))
-    pr = row_table[pairs["flat_cell"]]
-    return (pv.reshape(b, nprobe * cmax), pr.reshape(b, nprobe * cmax),
-            pairs["dropped"])
+    with annotate("fpv.ann.route"):
+        probe = probe_cells(croute, nprobe)
+    with annotate("fpv.ann.invert"):
+        pairs = invert_pairs(probe, nlist, qcap)
+    del probe   # a view that holds the whole (B, nlist) sort
+    with annotate("fpv.ann.score"):
+        fn, args = cell_score_args(qf, pairs, cells, ok_cells, vmin, scale,
+                                   cell_norms, metric=metric, qcap=qcap)
+        s = fn(*args, metric=metric)
+    with annotate("fpv.ann.regroup"):
+        # each pair's own score row, then one candidate row per query
+        u = s.shape[0]
+        flat_slot = pairs["cid_pair"] * qcap + torch.clamp(
+            pairs["pair_rank"], max=qcap - 1)
+        pv = s.reshape(u * qcap, cmax)[flat_slot]
+        pv = torch.where(pairs["pair_keep"][:, None], pv,
+                         torch.full((), float(MASKED), device=pv.device))
+        pr = row_table[pairs["flat_cell"]]
+        return (pv.reshape(b, nprobe * cmax), pr.reshape(b, nprobe * cmax),
+                pairs["dropped"])
 
 
 def finish_grouped(qf, cand_vals, cand_rows, overflow_vecs, overflow_rows,
@@ -258,11 +265,15 @@ def grouped_ivf_search_kernel(q, centroids, cells, row_table, overflow_vecs,
                               rerank: int = 0):
     """Returns (dists (B, k) f32, rows (B, k), dropped) as device tensors."""
     qf = q.float()
+    with annotate("fpv.ann.route"):
+        croute = route(qf, centroids, metric)
     cand_vals, cand_rows, dropped = grouped_cell_candidates(
-        qf, route(qf, centroids, metric), cells, row_table, ok_cells, vmin,
-        scale, cell_norms, metric=metric, nprobe=nprobe, qcap=qcap)
-    vals, rows = finish_grouped(
-        qf, cand_vals, cand_rows, overflow_vecs, overflow_rows, ok_overflow,
-        vectors, metric=metric, k=k, rerank=rerank,
-        compute_dtype=compute_dtype)
+        qf, croute, cells, row_table, ok_cells, vmin, scale, cell_norms,
+        metric=metric, nprobe=nprobe, qcap=qcap)
+    del croute
+    with annotate("fpv.ann.finish"):
+        vals, rows = finish_grouped(
+            qf, cand_vals, cand_rows, overflow_vecs, overflow_rows,
+            ok_overflow, vectors, metric=metric, k=k, rerank=rerank,
+            compute_dtype=compute_dtype)
     return vals, rows, dropped

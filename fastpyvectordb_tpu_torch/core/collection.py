@@ -24,6 +24,7 @@ import torch
 
 from ..kernels import topk as topk_mod
 from ..persist.format import load_container, save_container
+from ..profiling import annotate
 from ..utils import resolve_device
 from .filters import ColumnView, Filter
 from .store import DeviceVectorStore
@@ -261,17 +262,29 @@ class Collection:
     # ------------------------------------------------------------------
     # Search
     # ------------------------------------------------------------------
+    # Each public search entry opens one ``fpv.api.search`` span (the
+    # request's root) before its query is converted; ``search`` goes
+    # through ``_search_batch`` so that it opens only one.
     def search(self, query, k: int = 10, filter: Optional[Filter] = None,
                include_vectors: bool = False, exact: Optional[bool] = None
                ) -> List[SearchResult]:
-        return self.search_batch(as_f32_matrix(query, self.config.dimensions),
-                                 k, filter, include_vectors, exact)[0]
+        with annotate("fpv.api.search"):
+            return self._search_batch(
+                as_f32_matrix(query, self.config.dimensions), k, filter,
+                include_vectors, exact)[0]
 
     def search_batch(self, queries, k: int = 10,
                      filter: Optional[Filter] = None,
                      include_vectors: bool = False,
                      exact: Optional[bool] = None
                      ) -> List[List[SearchResult]]:
+        with annotate("fpv.api.search"):
+            return self._search_batch(queries, k, filter, include_vectors,
+                                      exact)
+
+    def _search_batch(self, queries, k: int, filter: Optional[Filter],
+                      include_vectors: bool, exact: Optional[bool]
+                      ) -> List[List[SearchResult]]:
         q = as_f32_matrix(queries, self.config.dimensions, allow_device=True)
         with self._lock:
             if self._store.n_valid == 0:
@@ -285,13 +298,14 @@ class Collection:
         """Array-shaped search: ``(ids, scores, rows)`` — an object ndarray
         of ids (B, k; None where fewer than k hits), an f32 score grid
         (B, k; +inf on empty slots) and the int32 store rows (-1 empty)."""
-        q = as_f32_matrix(queries, self.config.dimensions, allow_device=True)
-        with self._lock:
-            b = q.shape[0]
-            if self._store.n_valid == 0:
-                return self._empty_arrays(b, k)
-            dists, rows = self._search_rows(q, k, filter, exact)
-            return self._arrays_of(dists, rows, k)
+        with annotate("fpv.api.search"):
+            q = as_f32_matrix(queries, self.config.dimensions,
+                              allow_device=True)
+            with self._lock:
+                if self._store.n_valid == 0:
+                    return self._empty_arrays(q.shape[0], k)
+                dists, rows = self._search_rows(q, k, filter, exact)
+                return self._arrays_of(dists, rows, k)
 
     @staticmethod
     def _empty_arrays(b: int, k: int):
@@ -370,20 +384,21 @@ class Collection:
     def _arrays_of(self, dists, rows, k: int):
         """(dists, rows) -> the (ids, scores, rows) triple of
         ``search_arrays``.  Caller holds the lock."""
-        dists = np.asarray(dists)[:, :k].astype(np.float32, copy=False)
-        rows = np.asarray(rows)[:, :k]
-        ok = np.asarray(topk_mod.valid_hits(dists))
-        nrow = len(self._row_to_id)
-        ok &= (rows >= 0) & (rows < max(nrow, 1))
-        if nrow:
-            ids = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
-            ok &= ids != None  # noqa: E711 - elementwise
-        else:
-            ids = np.full(rows.shape, None, dtype=object)
-        ids = np.where(ok, ids, None)
-        dists = np.where(ok, dists, np.float32(np.inf))
-        rows = np.where(ok, rows, -1).astype(np.int32, copy=False)
-        return ids, dists, rows
+        with annotate("fpv.api.assemble"):
+            dists = np.asarray(dists)[:, :k].astype(np.float32, copy=False)
+            rows = np.asarray(rows)[:, :k]
+            ok = np.asarray(topk_mod.valid_hits(dists))
+            nrow = len(self._row_to_id)
+            ok &= (rows >= 0) & (rows < max(nrow, 1))
+            if nrow:
+                ids = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
+                ok &= ids != None  # noqa: E711 - elementwise
+            else:
+                ids = np.full(rows.shape, None, dtype=object)
+            ids = np.where(ok, ids, None)
+            dists = np.where(ok, dists, np.float32(np.inf))
+            rows = np.where(ok, rows, -1).astype(np.int32, copy=False)
+            return ids, dists, rows
 
     def metadata_for_rows(self, rows: np.ndarray) -> list:
         """Per-row metadata dict copies for ``search_arrays`` results
@@ -503,43 +518,44 @@ class Collection:
 
     def _assemble(self, q, dists: np.ndarray, rows: np.ndarray,
                   k: int, include_vectors: bool) -> List[List[SearchResult]]:
-        dists = np.asarray(dists)
-        rows = np.asarray(rows)
-        ok = np.asarray(topk_mod.valid_hits(dists))
-        nrow = len(self._row_to_id)
-        in_range = (rows >= 0) & (rows < nrow)
-        if nrow:
-            rid_grid = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
-            ok = ok & in_range & (rid_grid != None)  # noqa: E711
-        else:
-            ok = ok & in_range
-            rid_grid = rows  # unused: ok is all-False
-        if include_vectors:
-            vecs = self._store.get_rows(
-                np.maximum(rows, 0).reshape(-1).astype(np.int64)
-            ).reshape(rows.shape[0], rows.shape[1], -1)
-        md = self._metadata
-        dlist = dists.tolist()
-        rlist = rows.tolist()
-        idlist = rid_grid.tolist() if nrow else rlist
-        all_ok = bool(ok.all())
-        full_sel = list(range(min(k, rows.shape[1])))
-        results: List[List[SearchResult]] = []
-        for bi in range(rows.shape[0]):
-            if all_ok:
-                sel = full_sel
+        with annotate("fpv.api.assemble"):
+            dists = np.asarray(dists)
+            rows = np.asarray(rows)
+            ok = np.asarray(topk_mod.valid_hits(dists))
+            nrow = len(self._row_to_id)
+            in_range = (rows >= 0) & (rows < nrow)
+            if nrow:
+                rid_grid = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
+                ok = ok & in_range & (rid_grid != None)  # noqa: E711
             else:
-                sel = np.nonzero(ok[bi])[0][:k].tolist()
-            drow, rrow, irow = dlist[bi], rlist[bi], idlist[bi]
-            hits = []
-            for ki in sel:
-                m = md[rrow[ki]]
-                hits.append(SearchResult(
-                    id=irow[ki], score=drow[ki],
-                    metadata={} if m is None else dict(m),
-                    vector=(vecs[bi, ki] if include_vectors else None)))
-            results.append(hits)
-        return results
+                ok = ok & in_range
+                rid_grid = rows  # unused: ok is all-False
+            if include_vectors:
+                vecs = self._store.get_rows(
+                    np.maximum(rows, 0).reshape(-1).astype(np.int64)
+                ).reshape(rows.shape[0], rows.shape[1], -1)
+            md = self._metadata
+            dlist = dists.tolist()
+            rlist = rows.tolist()
+            idlist = rid_grid.tolist() if nrow else rlist
+            all_ok = bool(ok.all())
+            full_sel = list(range(min(k, rows.shape[1])))
+            results: List[List[SearchResult]] = []
+            for bi in range(rows.shape[0]):
+                if all_ok:
+                    sel = full_sel
+                else:
+                    sel = np.nonzero(ok[bi])[0][:k].tolist()
+                drow, rrow, irow = dlist[bi], rlist[bi], idlist[bi]
+                hits = []
+                for ki in sel:
+                    m = md[rrow[ki]]
+                    hits.append(SearchResult(
+                        id=irow[ki], score=drow[ki],
+                        metadata={} if m is None else dict(m),
+                        vector=(vecs[bi, ki] if include_vectors else None)))
+                results.append(hits)
+            return results
 
     # ------------------------------------------------------------------
     # Filters
@@ -924,24 +940,26 @@ class Collection:
                          include_vectors: bool = False
                          ) -> List[List[SearchResult]]:
         """Two-stage compressed scan -> exact re-rank."""
-        q = as_f32_matrix(queries, self.config.dimensions)
-        with self._lock:
-            if self._store.n_valid == 0 and self._store.count == 0:
-                return [[] for _ in range(q.shape[0])]
-            dists, rows = self._quantized_rows(q, k, rerank, filter)
-            return self._assemble(q, dists, rows, k, include_vectors)
+        with annotate("fpv.api.search"):
+            q = as_f32_matrix(queries, self.config.dimensions)
+            with self._lock:
+                if self._store.n_valid == 0 and self._store.count == 0:
+                    return [[] for _ in range(q.shape[0])]
+                dists, rows = self._quantized_rows(q, k, rerank, filter)
+                return self._assemble(q, dists, rows, k, include_vectors)
 
     def search_quantized_arrays(self, queries, k: int = 10,
                                 rerank: Optional[int] = None,
                                 filter: Optional[Filter] = None):
         """Array-shaped quantized search: the ``(ids, scores, rows)``
         triple of ``search_arrays``."""
-        q = as_f32_matrix(queries, self.config.dimensions)
-        with self._lock:
-            if self._store.n_valid == 0 and self._store.count == 0:
-                return self._empty_arrays(q.shape[0], k)
-            dists, rows = self._quantized_rows(q, k, rerank, filter)
-            return self._arrays_of(dists, rows, k)
+        with annotate("fpv.api.search"):
+            q = as_f32_matrix(queries, self.config.dimensions)
+            with self._lock:
+                if self._store.n_valid == 0 and self._store.count == 0:
+                    return self._empty_arrays(q.shape[0], k)
+                dists, rows = self._quantized_rows(q, k, rerank, filter)
+                return self._arrays_of(dists, rows, k)
 
     def _quantized_rows(self, q: np.ndarray, k: int,
                         rerank: Optional[int], filter: Optional[Filter]):

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import annotate
 from .cuda_build import CudaSource, I, P
 from .quant_kernels import check_cuda
 
@@ -109,7 +110,8 @@ def hamming_scores(qcodes: torch.Tensor, codes: torch.Tensor
     distances.  Any B, N, W."""
     if codes.device.type == "cpu":
         return hamming_scores_plain(qcodes, codes)
-    return _launch("hamming_scores", qcodes, codes, torch.int32)
+    with annotate("fpv.kernel.hamming_scores"):
+        return _launch("hamming_scores", qcodes, codes, torch.int32)
 
 
 def hamming_mxu_scores(qcodes: torch.Tensor, codes: torch.Tensor
@@ -118,4 +120,5 @@ def hamming_mxu_scores(qcodes: torch.Tensor, codes: torch.Tensor
     (the binary two-stage scan's coarse scores).  Any B, N, W."""
     if codes.device.type == "cpu":
         return hamming_mxu_scores_plain(qcodes, codes)
-    return _launch("hamming_mxu_scores", qcodes, codes, torch.float32)
+    with annotate("fpv.kernel.hamming_mxu_scores"):
+        return _launch("hamming_mxu_scores", qcodes, codes, torch.float32)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import DistanceMetric
+from ..profiling import annotate
 from .cuda_build import CudaSource, I, P
 from .distances import MASKED
 from .quant_kernels import METRIC_CODE, check_cuda
@@ -164,9 +165,10 @@ def grouped_cell_scores(cell_ids: torch.Tensor, qblk: torch.Tensor,
     if cells.device.type == "cpu":
         return grouped_cell_scores_plain(cell_ids, qblk, cells, norms, okf,
                                          qstat, metric=metric)
-    return _launch("fpv_grouped_cell_scores", "grouped_cell_scores",
-                   cell_ids, qblk, cells, norms, okf, (), qstat, metric,
-                   torch.bfloat16)
+    with annotate("fpv.kernel.grouped_cell_scores"):
+        return _launch("fpv_grouped_cell_scores", "grouped_cell_scores",
+                       cell_ids, qblk, cells, norms, okf, (), qstat, metric,
+                       torch.bfloat16)
 
 
 def grouped_cell_scores_i8(cell_ids: torch.Tensor, qblk: torch.Tensor,
@@ -182,10 +184,11 @@ def grouped_cell_scores_i8(cell_ids: torch.Tensor, qblk: torch.Tensor,
         return grouped_cell_scores_i8_plain(cell_ids, qblk, cells, norms, okf,
                                             sscale, sconst, qstat,
                                             metric=metric)
-    return _launch("fpv_grouped_cell_scores_i8", "grouped_cell_scores_i8",
-                   cell_ids, qblk, cells, norms, okf,
-                   (("sscale", sscale), ("sconst", sconst)), qstat, metric,
-                   torch.int8)
+    with annotate("fpv.kernel.grouped_cell_scores_i8"):
+        return _launch("fpv_grouped_cell_scores_i8",
+                       "grouped_cell_scores_i8", cell_ids, qblk, cells,
+                       norms, okf, (("sscale", sscale), ("sconst", sconst)),
+                       qstat, metric, torch.int8)
 
 
 def grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t):
@@ -227,36 +230,37 @@ def grouped_cell_scores_pq(cell_ids: torch.Tensor, lut: torch.Tensor,
     a hole is skipped all the same."""
     if codes_t.device.type == "cpu":
         return grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t)
-    u, qcap = qslot.shape
-    nlist, m, cmax = codes_t.shape
-    b, mk = lut.shape
-    if mk % m:
-        raise ValueError(f"lut width {mk} is not a multiple of M={m}")
-    check_cuda("codes_t", torch.uint8, codes_t, (nlist, m, cmax))
-    check_cuda("lut", torch.bfloat16, lut, (b, mk))
-    check_cuda("qslot", torch.int32, qslot, (u, qcap))
-    check_cuda("cell_ids", torch.int32, cell_ids, (u + 1,))
-    for t in (lut, qslot, cell_ids):
-        if t.device != codes_t.device:
-            raise ValueError("grouped_cell_scores_pq: operands on different "
-                             "devices")
-    out = torch.empty((u, qcap, cmax), dtype=torch.float32,
-                      device=codes_t.device)
-    lib = SOURCE_PQ.load()
-    # the kernel's work list (its counters and tiles) lives in scratch
-    ints = lib.fpv_grouped_cell_scores_pq_scratch(u, qcap, cmax)
-    if ints < 0:
-        raise ValueError("grouped_cell_scores_pq: too many tiles for "
-                         f"U={u} qcap={qcap} cmax={cmax}")
-    scratch = torch.empty(ints, dtype=torch.int32, device=codes_t.device)
-    with torch.cuda.device(codes_t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fpv_grouped_cell_scores_pq(
-            cell_ids.data_ptr(), lut.data_ptr(), qslot.data_ptr(),
-            codes_t.data_ptr(), out.data_ptr(), u, qcap, cmax, m, mk // m,
-            scratch.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"grouped_cell_scores_pq launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["grouped_cell_scores_pq"] += 1
-    return out
+    with annotate("fpv.kernel.grouped_cell_scores_pq"):
+        u, qcap = qslot.shape
+        nlist, m, cmax = codes_t.shape
+        b, mk = lut.shape
+        if mk % m:
+            raise ValueError(f"lut width {mk} is not a multiple of M={m}")
+        check_cuda("codes_t", torch.uint8, codes_t, (nlist, m, cmax))
+        check_cuda("lut", torch.bfloat16, lut, (b, mk))
+        check_cuda("qslot", torch.int32, qslot, (u, qcap))
+        check_cuda("cell_ids", torch.int32, cell_ids, (u + 1,))
+        for t in (lut, qslot, cell_ids):
+            if t.device != codes_t.device:
+                raise ValueError("grouped_cell_scores_pq: operands on "
+                                 "different devices")
+        out = torch.empty((u, qcap, cmax), dtype=torch.float32,
+                          device=codes_t.device)
+        lib = SOURCE_PQ.load()
+        # the kernel's work list (its counters and tiles) lives in scratch
+        ints = lib.fpv_grouped_cell_scores_pq_scratch(u, qcap, cmax)
+        if ints < 0:
+            raise ValueError("grouped_cell_scores_pq: too many tiles for "
+                             f"U={u} qcap={qcap} cmax={cmax}")
+        scratch = torch.empty(ints, dtype=torch.int32, device=codes_t.device)
+        with torch.cuda.device(codes_t.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.fpv_grouped_cell_scores_pq(
+                cell_ids.data_ptr(), lut.data_ptr(), qslot.data_ptr(),
+                codes_t.data_ptr(), out.data_ptr(), u, qcap, cmax, m, mk // m,
+                scratch.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"grouped_cell_scores_pq launch failed: CUDA "
+                               f"error {rc}")
+        LAUNCHES["grouped_cell_scores_pq"] += 1
+        return out

@@ -29,6 +29,7 @@ import functools
 import torch
 
 from ..core.types import DistanceMetric
+from ..profiling import annotate
 from .cuda_build import CudaSource, I, P
 
 LAUNCHES = {"sq_scores": 0, "int4_scores": 0}
@@ -171,13 +172,14 @@ def sq_scores(queries: torch.Tensor, codes: torch.Tensor, vmin: torch.Tensor,
     metric = DistanceMetric.parse(metric)
     if codes.device.type == "cpu":
         return sq_scores_plain(queries, codes, vmin, scale, metric=metric)
-    n, d = codes.shape
-    check_cuda("codes", torch.int8, codes, (n, d))
-    q_in, qsq = _prep_queries(queries, metric)
-    check_cuda("queries", torch.float32, q_in.contiguous(),
-               (q_in.shape[0], d))
-    return _launch("fpv_sq_scores", "sq_scores", "int8", q_in, qsq, codes,
-                   vmin, scale.float() / 255.0, d, metric)
+    with annotate("fpv.kernel.sq_scores"):
+        n, d = codes.shape
+        check_cuda("codes", torch.int8, codes, (n, d))
+        q_in, qsq = _prep_queries(queries, metric)
+        check_cuda("queries", torch.float32, q_in.contiguous(),
+                   (q_in.shape[0], d))
+        return _launch("fpv_sq_scores", "sq_scores", "int8", q_in, qsq,
+                       codes, vmin, scale.float() / 255.0, d, metric)
 
 
 def int4_scores(queries: torch.Tensor, packed: torch.Tensor,
@@ -188,10 +190,11 @@ def int4_scores(queries: torch.Tensor, packed: torch.Tensor,
     metric = DistanceMetric.parse(metric)
     if packed.device.type == "cpu":
         return int4_scores_plain(queries, packed, vmin, scale, metric=metric)
-    n, w = packed.shape
-    check_cuda("packed", torch.uint8, packed, (n, w))
-    q_in, qsq = _prep_queries(queries, metric)
-    check_cuda("queries", torch.float32, q_in.contiguous(),
-               (q_in.shape[0], 2 * w))
-    return _launch("fpv_int4_scores", "int4_scores", "int4", q_in, qsq,
-                   packed, vmin, scale.float() / 15.0, w, metric)
+    with annotate("fpv.kernel.int4_scores"):
+        n, w = packed.shape
+        check_cuda("packed", torch.uint8, packed, (n, w))
+        q_in, qsq = _prep_queries(queries, metric)
+        check_cuda("queries", torch.float32, q_in.contiguous(),
+                   (q_in.shape[0], 2 * w))
+        return _launch("fpv_int4_scores", "int4_scores", "int4", q_in, qsq,
+                       packed, vmin, scale.float() / 15.0, w, metric)

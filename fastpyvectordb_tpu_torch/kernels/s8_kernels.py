@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from ..core.types import DistanceMetric
+from ..profiling import annotate
 from .cuda_build import CudaSource, I, P
 from .distances import MASKED, smallest_k
 from .quant_kernels import check_cuda
@@ -116,9 +117,10 @@ def s8_scores(qi: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     Any B, N, D."""
     if codes.device.type == "cpu":
         return s8_scores_plain(qi, codes)
-    n, d = codes.shape
-    check_cuda("codes", torch.int8, codes, (n, d))
-    return _launch("s8_scores", qi, codes, n, d)
+    with annotate("fpv.kernel.s8_scores"):
+        n, d = codes.shape
+        check_cuda("codes", torch.int8, codes, (n, d))
+        return _launch("s8_scores", qi, codes, n, d)
 
 
 def s8_scores_tn(qi: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
@@ -126,9 +128,10 @@ def s8_scores_tn(qi: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     int32 exact inner products.  Any B, N, D."""
     if codes_t.device.type == "cpu":
         return s8_scores_tn_plain(qi, codes_t)
-    d, n = codes_t.shape
-    check_cuda("codes_t", torch.int8, codes_t, (d, n))
-    return _launch("s8_scores_tn", qi, codes_t, n, d)
+    with annotate("fpv.kernel.s8_scores_tn"):
+        d, n = codes_t.shape
+        check_cuda("codes_t", torch.int8, codes_t, (d, n))
+        return _launch("s8_scores_tn", qi, codes_t, n, d)
 
 
 # The PyTorch calls that B8's and B9's kernels are timed against
@@ -209,54 +212,59 @@ def s8_topc(qi: torch.Tensor, codes: torch.Tensor, qscale: torch.Tensor,
     if codes.device.type == "cpu":
         return s8_topc_plain(qi, codes, qscale, const, qstat, rstat, mask,
                              c=c, metric=metric)
-    n, d = codes.shape
-    b = qi.shape[0]
-    check_cuda("codes", torch.int8, codes, (n, d))
-    check_cuda("queries", torch.int8, qi, (b, d))
-    check_cuda("qscale", torch.float32, qscale, (b,))
-    check_cuda("const", torch.float32, const, (b,))
-    if metric != DistanceMetric.DOT:
-        check_cuda("qstat", torch.float32, qstat, (b,))
-        check_cuda("rstat", torch.float32, rstat, (n,))
-    if mask is not None:
-        check_cuda("mask", torch.bool, mask, (n,))
-    if not 1 <= c <= n:
-        raise ValueError(f"s8_topc: c={c} outside 1..N={n}")
-    if c > TOPC_MAX:
-        # by shape: the fused kernel's lists hold at most TOPC_MAX
-        LAUNCHES["s8_topc_wide"] += 1
-        return _topc_from_scores(
-            folded_epilogue(s8_scores(qi, codes), qscale, const, qstat,
-                            rstat, metric), mask, c)
-    if b == 0:
-        return (torch.empty((0, c), dtype=torch.float32, device=codes.device),
-                torch.empty((0, c), dtype=torch.int64, device=codes.device))
-    if mask is None:
-        mask = torch.ones((n,), dtype=torch.bool, device=codes.device)
-    if metric == DistanceMetric.DOT:
-        qstat, rstat = torch.zeros_like(qscale), qscale   # read by neither
-    # per query (qscale, const, qstat, RN(1 / qstat)): the kernel divides
-    # by qn with FMAs from its correctly rounded reciprocal
-    qparams = torch.stack([qscale, const, qstat, 1.0 / qstat], dim=1)
-    qk = kernel_query(qi)
-    lib = SOURCE.load()
-    with torch.cuda.device(codes.device):
-        g = lib.fpv_s8_topc_blocks(b, n)
-        width = c + TOPC_SLACK
-        lists = torch.empty((b, g, width, 2), dtype=torch.int32,
-                            device=codes.device)
-        vals = torch.empty((b, c), dtype=torch.float32, device=codes.device)
-        rows = torch.empty((b, c), dtype=torch.int64, device=codes.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fpv_s8_topc(
-            qk.data_ptr(), codes.data_ptr(), qparams.data_ptr(),
-            rstat.data_ptr(), mask.data_ptr(), lists.data_ptr(), b, n, d,
-            qk.shape[1], c, _METRIC_ID[metric], stream)
-        if rc == 0:
-            rc = lib.fpv_s8_topc_merge(lists.data_ptr(), vals.data_ptr(),
-                                       rows.data_ptr(), b, g, width, c,
-                                       stream)
-    if rc != 0:
-        raise RuntimeError(f"s8_topc launch failed: CUDA error {rc}")
-    LAUNCHES["s8_topc"] += 1
-    return vals, rows
+    # the span and the counter are named by the route the width picks
+    with annotate("fpv.kernel.s8_topc_wide" if c > TOPC_MAX
+                  else "fpv.kernel.s8_topc"):
+        n, d = codes.shape
+        b = qi.shape[0]
+        check_cuda("codes", torch.int8, codes, (n, d))
+        check_cuda("queries", torch.int8, qi, (b, d))
+        check_cuda("qscale", torch.float32, qscale, (b,))
+        check_cuda("const", torch.float32, const, (b,))
+        if metric != DistanceMetric.DOT:
+            check_cuda("qstat", torch.float32, qstat, (b,))
+            check_cuda("rstat", torch.float32, rstat, (n,))
+        if mask is not None:
+            check_cuda("mask", torch.bool, mask, (n,))
+        if not 1 <= c <= n:
+            raise ValueError(f"s8_topc: c={c} outside 1..N={n}")
+        if c > TOPC_MAX:
+            # by shape: the fused kernel's lists hold at most TOPC_MAX
+            LAUNCHES["s8_topc_wide"] += 1
+            return _topc_from_scores(
+                folded_epilogue(s8_scores(qi, codes), qscale, const, qstat,
+                                rstat, metric), mask, c)
+        if b == 0:
+            dev = codes.device
+            return (torch.empty((0, c), dtype=torch.float32, device=dev),
+                    torch.empty((0, c), dtype=torch.int64, device=dev))
+        if mask is None:
+            mask = torch.ones((n,), dtype=torch.bool, device=codes.device)
+        if metric == DistanceMetric.DOT:
+            qstat, rstat = torch.zeros_like(qscale), qscale   # read by neither
+        # per query (qscale, const, qstat, RN(1 / qstat)): the kernel divides
+        # by qn with FMAs from its correctly rounded reciprocal
+        qparams = torch.stack([qscale, const, qstat, 1.0 / qstat], dim=1)
+        qk = kernel_query(qi)
+        lib = SOURCE.load()
+        with torch.cuda.device(codes.device):
+            g = lib.fpv_s8_topc_blocks(b, n)
+            width = c + TOPC_SLACK
+            lists = torch.empty((b, g, width, 2), dtype=torch.int32,
+                                device=codes.device)
+            vals = torch.empty((b, c), dtype=torch.float32,
+                               device=codes.device)
+            rows = torch.empty((b, c), dtype=torch.int64, device=codes.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.fpv_s8_topc(
+                qk.data_ptr(), codes.data_ptr(), qparams.data_ptr(),
+                rstat.data_ptr(), mask.data_ptr(), lists.data_ptr(), b, n, d,
+                qk.shape[1], c, _METRIC_ID[metric], stream)
+            if rc == 0:
+                rc = lib.fpv_s8_topc_merge(lists.data_ptr(), vals.data_ptr(),
+                                           rows.data_ptr(), b, g, width, c,
+                                           stream)
+        if rc != 0:
+            raise RuntimeError(f"s8_topc launch failed: CUDA error {rc}")
+        LAUNCHES["s8_topc"] += 1
+        return vals, rows

@@ -6,8 +6,9 @@
   * ``trace`` — context manager around ``torch.profiler`` (CPU activity,
     plus CUDA activity when a card is present) writing a Chrome trace
     (Perfetto / chrome://tracing) into ``log_dir``.
-  * ``annotate`` — named region inside a trace (``record_function``, plus
-    an NVTX range when a card is present).
+  * ``annotate`` — named region inside a trace: ``record_function`` while
+    a ``torch.profiler`` records, else one shared no-op context.  The
+    search path's spans (``fpv.<layer>.<stage>``) all go through it.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from pathlib import Path
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 class QueryTimer:
@@ -83,7 +85,6 @@ def trace(log_dir: str = "fvdb_trace", device=None) -> Iterator[str]:
     (``device=None`` means the card and raises without one, as every
     entry point of the package).  On exit the card is synchronized and
     the trace exported."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from .utils import resolve_device
@@ -100,17 +101,15 @@ def trace(log_dir: str = "fvdb_trace", device=None) -> Iterator[str]:
     prof.export_chrome_trace(str(out / TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside an active trace (host timeline; an NVTX range
-    on the card's timeline too when a card is present)."""
-    import torch
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def annotate(name: str):
+    """Named region of the host timeline: ``record_function(name)`` while a
+    ``torch.profiler`` records (``trace``, or any other ``profile``), so the
+    range lands in the same trace as the card's kernels; otherwise one
+    shared no-op context, which allocates nothing."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(name)

@@ -32,6 +32,7 @@ from ..kernels.hamming_kernels import hamming_mxu_scores, hamming_scores
 from ..kernels.quant_kernels import int4_scores
 from ..kernels.s8_kernels import TOPC_MAX
 from ..kernels.topk import masked_top_k
+from ..profiling import annotate
 from ..utils import next_pow2
 from .binary import BinaryQuantizer, _encode as _binary_encode
 from .binary import from_uint32, to_uint32
@@ -142,9 +143,12 @@ def _int8_two_stage(q, codes, vmin, scale, vsq, rinv, vectors, mask, *,
     """The whole int8 two-stage search: the fused folded s8 scan with
     its top-c candidates (``s8_topc``) -> gather -> exact re-rank -> final
     top-k."""
-    cvals, crows = int8_topc(q, codes, vmin, scale, vsq, rinv, mask, c=c,
-                             metric=metric)
-    return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
+    with annotate("fpv.scan.coarse"):
+        cvals, crows = int8_topc(q, codes, vmin, scale, vsq, rinv, mask,
+                                 c=c, metric=metric)
+    with annotate("fpv.scan.rerank"):
+        return gather_rerank(q, cvals, crows, vectors, metric, k,
+                             rerank_dtype)
 
 
 def _int4_two_stage(q, codes, vmin, scale, vectors, mask, *,
@@ -154,10 +158,13 @@ def _int4_two_stage(q, codes, vmin, scale, vectors, mask, *,
     ``int4_scores`` kernel on CUDA (its plain version on the CPU): the scan
     streams N x D/2 code bytes, half of int8's.  ``q`` keeps the true dims
     for the re-rank; the kernel query is padded to the packed width."""
-    s = int4_scores(_pad_queries(q, 2 * codes.shape[1]), codes, vmin, scale,
-                    metric=metric)
-    cvals, crows = _masked_candidates(s, mask, c=c)
-    return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
+    with annotate("fpv.scan.coarse"):
+        s = int4_scores(_pad_queries(q, 2 * codes.shape[1]), codes, vmin,
+                        scale, metric=metric)
+        cvals, crows = _masked_candidates(s, mask, c=c)
+    with annotate("fpv.scan.rerank"):
+        return gather_rerank(q, cvals, crows, vectors, metric, k,
+                             rerank_dtype)
 
 
 def _binary_two_stage(q, thresholds, codes, vectors, mask, *, dims: int,
@@ -166,9 +173,13 @@ def _binary_two_stage(q, thresholds, codes, vectors, mask, *, dims: int,
     """The whole binary two-stage search: query sign bits -> Hamming scan
     (the ``hamming_mxu_scores`` kernel on CUDA, over the snapshot's own
     row-major words) -> top-c candidates -> gather -> exact re-rank."""
-    s = hamming_mxu_scores(_binary_encode(q, thresholds, dims=dims), codes)
-    cvals, crows = _masked_candidates(s, mask, c=c)
-    return gather_rerank(q, cvals, crows, vectors, metric, k, rerank_dtype)
+    with annotate("fpv.scan.coarse"):
+        s = hamming_mxu_scores(_binary_encode(q, thresholds, dims=dims),
+                               codes)
+        cvals, crows = _masked_candidates(s, mask, c=c)
+    with annotate("fpv.scan.rerank"):
+        return gather_rerank(q, cvals, crows, vectors, metric, k,
+                             rerank_dtype)
 
 
 def _pq_encode_rows(vectors: torch.Tensor, codebooks: torch.Tensor, *,
@@ -184,6 +195,13 @@ def _pq_encode_rows(vectors: torch.Tensor, codebooks: torch.Tensor, *,
                                 min=1e-30)
         out[s:s + _PQ_ENCODE_ROWS] = _pq_encode(x, codebooks)
     return out
+
+
+def _fetch(d: torch.Tensor, r: torch.Tensor
+           ) -> Tuple[np.ndarray, np.ndarray]:
+    """The result's host copies (the host waits for the card here)."""
+    with annotate("fpv.scan.fetch"):
+        return d.cpu().numpy(), r.to(torch.int32).cpu().numpy()
 
 
 def _normalized_host(q: np.ndarray) -> np.ndarray:
@@ -315,6 +333,11 @@ class QuantizedScan:
     def search(self, queries, k: int, rerank: Optional[int] = None,
                mask: Optional[np.ndarray] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
+        with annotate("fpv.scan.search"):
+            return self._search(queries, k, rerank, mask)
+
+    def _search(self, queries, k: int, rerank: Optional[int],
+                mask: Optional[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
         if rerank is None:
             rerank = self.default_rerank
         q = np.ascontiguousarray(queries, dtype=np.float32)
@@ -332,21 +355,22 @@ class QuantizedScan:
             sub *= 2
         writes_block = self.kind != "int8" or c > TOPC_MAX
         if self.kind in _FUSED and writes_block and b > sub:
-            parts = [self.search(q[s:s + sub], k, rerank, mask)
+            parts = [self._search(q[s:s + sub], k, rerank, mask)
                      for s in range(0, b, sub)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
         device = self.codes.device
-        valid = self._valid(n)
-        if mask is not None:
-            mk = np.asarray(mask[:n], dtype=bool)
-            if mk.shape[0] < n:
-                mk = np.pad(mk, (0, n - mk.shape[0]))
-            m = torch.as_tensor(mk, device=device) & valid
-        else:
-            m = valid
+        with annotate("fpv.scan.upload"):
+            valid = self._valid(n)
+            if mask is not None:
+                mk = np.asarray(mask[:n], dtype=bool)
+                if mk.shape[0] < n:
+                    mk = np.pad(mk, (0, n - mk.shape[0]))
+                m = torch.as_tensor(mk, device=device) & valid
+            else:
+                m = valid
+            qd = torch.as_tensor(q).to(device)
         kk = min(k, c)
-        qd = torch.as_tensor(q).to(device)
         qz = self.quantizer
         vectors = self._store.vectors
         if rerank > 1 and self.kind in _FUSED:
@@ -366,30 +390,31 @@ class QuantizedScan:
             else:
                 d, r = _binary_two_stage(qf, qz.thresholds, self.codes,
                                          vectors, m, dims=qz.dims, **common)
-            return d.cpu().numpy(), r.to(torch.int32).cpu().numpy()
+            return _fetch(d, r)
         # the general path (pq, and rerank <= 1): coarse top-c in f32
-        if self.kind == "int8":
-            vsq, rinv = self._stats()
-            cvals, crows = _int8_coarse_topk(qd, self.codes, qz.vmin,
-                                             qz.scale, vsq, rinv, m,
-                                             metric=self.metric, k=c)
-        elif self.kind == "int4":
-            cvals, crows = _int4_coarse_topk(qd, self.codes, qz.vmin,
-                                             qz.scale, m, metric=self.metric,
-                                             k=c)
-        elif self.kind == "binary":
-            cvals, crows = _hamming_coarse_topk(
-                qz.encode(qd), self.codes, m, k=c,
-                chunk=int(min(262_144, next_pow2(n))))
-        else:
-            cvals, crows = masked_top_k(self.coarse_distances(q), c, m)
+        with annotate("fpv.scan.coarse"):
+            if self.kind == "int8":
+                vsq, rinv = self._stats()
+                cvals, crows = _int8_coarse_topk(qd, self.codes, qz.vmin,
+                                                 qz.scale, vsq, rinv, m,
+                                                 metric=self.metric, k=c)
+            elif self.kind == "int4":
+                cvals, crows = _int4_coarse_topk(qd, self.codes, qz.vmin,
+                                                 qz.scale, m,
+                                                 metric=self.metric, k=c)
+            elif self.kind == "binary":
+                cvals, crows = _hamming_coarse_topk(
+                    qz.encode(qd), self.codes, m, k=c,
+                    chunk=int(min(262_144, next_pow2(n))))
+            else:
+                cvals, crows = masked_top_k(self.coarse_distances(q), c, m)
         if rerank <= 1:
-            return (cvals[:, :k].cpu().numpy(),
-                    crows[:, :k].to(torch.int32).cpu().numpy())
+            return _fetch(cvals[:, :k], crows[:, :k])
         # only pq re-ranks here, in f32 as the JAX package's _rerank does
-        d, r = gather_rerank(qd, cvals, crows, vectors, self.metric, kk,
-                             "float32")
-        return d.cpu().numpy(), r.to(torch.int32).cpu().numpy()
+        with annotate("fpv.scan.rerank"):
+            d, r = gather_rerank(qd, cvals, crows, vectors, self.metric, kk,
+                                 "float32")
+        return _fetch(d, r)
 
     def tune_rerank(self, queries, target_recall: float = 0.95,
                     k: int = 10, max_rerank: int = 256) -> int:
