@@ -246,9 +246,44 @@ struct S8Op {
 // 1.65 T int8 operations, 0.83 ms at 1,979 TOP/s; its bytes are the codes
 // (0.81 GB), the row values and mask and the (B, c) result, 0.25 ms at 3.35
 // TB/s.  What stands in the way is the epilogue, which runs while the
-// tensor cores wait: some 20 scalar operations a score (the scores of a
-// tile are 256 x 128), then the rows that enter a list and the lists'
-// compactions (tools/kernel_variants.py topc measures each part).
+// tensor cores wait (tools/kernel_variants.py topc measures each part).
+// Before the prefilter (topc_epilogue.cuh) every score paid some 20 scalar
+// operations, the query's values loaded from shared memory, the folded
+// arithmetic below and the key: of the full kernel's 7.13-7.16 ms (random
+// codes, c = 40) ~2.0 ms went to that loop, ~1.5 to the arithmetic and
+// ~2.5 to the rows that enter a list (~2% of the scores) and the lists'
+// compactions, against 1.07-1.14 without any epilogue.  With it a score
+// costs an integer compare against its query's floor and a predicated
+// store, and only the scores at or above the floor (2.1% of them on the
+// int8 path's own operands, 4.6% on random codes) pay the rest, from a
+// queue; appends and compactions are unchanged.  On an H100 80GB HBM3 at
+// 700 W the kernel on the int8 path's own operands went 6.48-6.57 ->
+// 4.68-4.74 ms at B=1024 and 1.07-1.11 -> 0.60-0.61 ms at B=1; with 1%
+// of the rows live 4.98-5.20 -> 4.63-4.80, 10% 6.61-6.71 -> 4.98-5.03;
+// random codes at B=1024 6.89-7.05 -> 5.68-5.79, but at c = 1024
+// 47.28-47.73 -> 49.76-50.20 (the floors stay loose).  A B=1024 tile
+// then spends ~13k cycles in the mainloop (~7.7k without an epilogue: the
+// ring refills after it), ~10k in compactions, ~8k in the two phases of
+// the prefilter and ~2k setting the floors (PERF.md, section 6).
+//
+// topc_floor: the prefilter's floor.  The scores, as topc_score computes
+// them, never rise as the product falls, nor as a live row's value leaves
+// the tile's lowest-scoring one (every rounding RN is monotone; inside the
+// ranges tested first no value overflows):
+//   x = RN(RN(RN(dot) qscale) + const) does not fall as dot rises (qscale
+//     > 0);
+//   dot: -x;
+//   l2: max(RN(RN(qsq + vsq) - 2x), 0), which does not rise with x and
+//     does not fall as vsq >= lo rises (a NaN vsq scores NaN);
+//   cosine, for s < 1, rinv in [0, hi], qn in [2^-20, 2^20], hi <= 2^20:
+//     where x / qn <= -2^-126, div_rn is RN(x / qn) < 0, so RN(d rinv) <= 0
+//     and the score is >= 1 > s; where |x / qn| < 2^-126, every value in
+//     div_rn's FMAs stays under 2^-121, so |RN(d rinv)| < 2^-100 and the
+//     score is 1 > s; where x / qn >= 2^-126, d = RN(x / qn) does not fall
+//     as x rises, and RN(d rinv) <= RN(d(T - 1) hi), so the score is no
+//     lower than the one checked at T - 1 and hi.
+// So a score checked above s at product T - 1 and the extreme value keeps
+// every lower product of every live row above s.
 enum { COSINE = 0, L2 = 1, DOT = 2 };
 
 template <int METRIC>
@@ -281,6 +316,45 @@ struct S8TopcOp : S8Op<false> {
       return t < 0.0f ? 0.0f : t;   // clamp(min=0): NaN stays NaN
     }
     return -x;
+  }
+
+  // The least product that may score at or below s, for a query with
+  // values v over rows whose values lie in [lo, hi] (note above), or
+  // INT_MIN.
+  static __device__ __forceinline__ int topc_floor(float4 v, float s,
+                                                   float lo, float hi) {
+    const float a = v.x, c = v.y;
+    if (!(a > 0.0f && a <= 0x1p60f && fabsf(c) <= 0x1p90f &&
+          fabsf(s) <= 0x1p100f))
+      return INT_MIN;
+    // x's threshold, the size of the terms it is made from and the row
+    // value that scores lowest
+    float x, size, rv;
+    if (METRIC == COSINE) {
+      if (!(s < 1.0f && lo >= 0.0f && hi <= 0x1p20f && v.z >= 0x1p-20f &&
+            v.z <= 0x1p20f))
+        return INT_MIN;
+      const float qr = __fdividef(v.z, hi);
+      x = (1.0f - s) * qr;
+      size = (2.0f - s) * qr;
+      rv = hi;
+    } else if (METRIC == L2) {
+      if (!(fabsf(v.z) <= 0x1p100f && fabsf(lo) <= 0x1p100f)) return INT_MIN;
+      x = 0.5f * (v.z + lo - s);
+      size = fabsf(v.z) + fabsf(lo) + fabsf(s);
+      rv = lo;
+    } else {
+      x = -s;
+      size = fabsf(s);
+      rv = 0.0f;
+    }
+    const float t = (x - c - 0x1p-16f * (size + fabsf(x) + fabsf(c))) *
+                        __fdividef(1.0f, a) -
+                    2.0f;
+    if (!(t > -0x1p31f)) return INT_MIN;   // a NaN too
+    const int f = __float2int_rd(t);       // saturates at INT_MAX
+    if (f == INT_MIN) return INT_MIN;
+    return topc_score(f - 1, v, rv) > s ? f : INT_MIN;
   }
 };
 
@@ -399,10 +473,11 @@ int fpv_s8_topc_merge(const void* lists, void* vals, void* rows, int B,
 }
 
 #ifdef FPV_TOPC_STATS
-// read and reset the counts of a -DFPV_TOPC_STATS build
+// read and reset the counts of a -DFPV_TOPC_STATS build: rows entered,
+// compactions, scores that passed the integer test, scores tested in place
 int fpv_s8_topc_stats(unsigned long long* out) {
   cudaMemcpyFromSymbol(out, fpv::topc_stats, sizeof(fpv::topc_stats));
-  const unsigned long long zero[2] = {0ull, 0ull};
+  const unsigned long long zero[4] = {0ull, 0ull, 0ull, 0ull};
   cudaMemcpyToSymbol(fpv::topc_stats, zero, sizeof(zero));
   return int(cudaGetLastError());
 }

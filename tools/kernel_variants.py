@@ -49,11 +49,17 @@ folded epilogue's PyTorch passes + ``masked_fill`` + ``torch.topk``), each
 variant ``csrc/s8_scores.cu`` built with the switches of ``TOPC_VARIANTS``
 (outputs wrong, times only): no epilogue at all, no epilogue arithmetic
 (the score is the integer product), no threshold compare (no row enters a
-list), both of these, no compactions; ``merge``, the merge kernel alone on
-the lists the full kernel left; and ``stats``, a build that counts the
-rows that enter the lists and the compactions (printed a block and
-query).  Each variant is timed beside the full kernel in the same child
-process.
+list), both of these, no compactions, no prefilter (every score runs the
+exact test, as before the integer floors); ``merge``, the merge kernel
+alone on the lists the full kernel left; ``cell``, the full kernel on the
+int8 cells' own operands (``_cell_args``) at B=1024 and B=1; and
+``stats``, a build that counts the rows that enter the lists, the
+compactions, the scores that pass the integer test and those tested in
+place without it (printed a block and query, and as a share of the
+scores), on random codes and on the cells' operands at B=1024 and B=1.
+Each variant is timed beside the full kernel in the same child process.
+Run on an older checkout, a switch its sources lack builds the full
+kernel, and its stats have no pass count.
 
 Prints one line a variant and round, then the card's nvidia-smi name and
 power limit.
@@ -307,7 +313,9 @@ TOPC_VARIANTS = {
     "no_filter": ["-DFPV_TOPC_NO_FILTER"],
     "no_filter_math": ["-DFPV_TOPC_NO_FILTER", "-DFPV_TOPC_NO_MATH"],
     "no_compact": ["-DFPV_TOPC_NO_COMPACT"],
+    "no_prefilter": ["-DFPV_TOPC_NO_PREFILTER"],
     "merge": [],
+    "cell": [],
     "stats": ["-DFPV_TOPC_STATS"],
 }
 
@@ -337,6 +345,41 @@ def _load_s8(name: str):
     if name == "stats":
         lib.fpv_s8_topc_stats.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def _cell_args(b: int):
+    """``s8_topc``'s operands in the int8 cells: the collection of
+    ``portbench/configs/cohere768-1m-int8.json`` built as the benchmark
+    builds it (its vectors at seed 1, ``insert_batch`` in its chunks,
+    ``enable_quantized_scan("int8")``), the snapshot's codes, rinv and
+    validity mask at its 1,048,576 rows, and ``b`` of its queries folded as
+    ``folded_int_topc`` folds them."""
+    import json
+    import torch
+    from fastpyvectordb_tpu_torch import VectorDB
+    from fastpyvectordb_tpu_torch.quant.scalar import _int8_rs_bias, \
+        fold_queries
+    from portbench import data
+    cfg = json.loads((ROOT / "portbench" / "configs" /
+                      "cohere768-1m-int8.json").read_text())
+    rows, dims = cfg["rows"], cfg["dims"]
+    corpus, centers = data.clustered(cfg["data"], rows, dims, 1, "cuda")
+    host = corpus.cpu().numpy()
+    del corpus
+    col = VectorDB(None, device="cuda").create_collection(
+        "cell", dims, **cfg["collection"])
+    names, fill = data.ids(rows), cfg["fill"]["batch"]
+    for s in range(0, rows, fill):
+        col.insert_batch(host[s:s + fill], names[s:s + fill].tolist())
+    scan = col.enable_quantized_scan("int8", tune=False)
+    qz, codes = scan.quantizer, scan.codes
+    _, rinv = scan._stats()
+    mask = scan._valid(codes.shape[0])
+    q = data.queries(cfg["data"], centers, b, 1, data.POOL)
+    qi, qscale, const, qn = fold_queries(
+        torch.as_tensor(q, device="cuda"), *_int8_rs_bias(qz.vmin, qz.scale),
+        "cosine")
+    return qi, codes, qscale, const, qn, rinv, mask
 
 
 def time_topc(name: str, rnd: str) -> None:
@@ -370,12 +413,51 @@ def time_topc(name: str, rnd: str) -> None:
     args = (qi, codes, qscale, const, qn, rinv, mask)
     base, var = _load_s8("base"), _load_s8(name)
 
-    def fused(lib):
+    def fused(lib, operands=args):
         def run():
             s8.SOURCE._lib = lib
-            return s8.s8_topc(*args, c=c, metric="cosine")
+            return s8.s8_topc(*operands, c=c, metric="cosine")
         return run
 
+    def first(operands, k):
+        """The same operands with only their first k queries."""
+        qi_, codes_, qscale_, const_, qn_, rinv_, mask_ = operands
+        return (qi_[:k], codes_, qscale_[:k], const_[:k], qn_[:k], rinv_,
+                mask_)
+
+    if name == "cell":
+        cell = _cell_args(b)
+        nc = cell[1].shape[0]
+        t = [ms(fused(base, cell)), ms(fused(base, first(cell, 1)), reps=50)]
+        print(f"round {rnd} cell         s8_topc on the int8 cells' operands "
+              f"(1024 / 1 x {nc} x {d}, c = {c}): {t[0]:.4f} / {t[1]:.4f} ms",
+              flush=True)
+        return
+    if name == "stats":
+        # rows entered, compactions and scores past the floors, per block
+        # and query, on random codes and the cells' operands, B=1024 and 1
+        cell = _cell_args(b)
+        for label, ops in (("random", args), ("cell", cell)):
+            for k in (b, 1):
+                one = ops if k == b else first(ops, k)
+                nn = one[1].shape[0]
+                s8.SOURCE._lib = var
+                s8.s8_topc(*one, c=c, metric="cosine")
+                got = (ctypes.c_ulonglong * 4)()
+                var.fpv_s8_topc_stats(got)
+                g = var.fpv_s8_topc_blocks(k, nn)
+                # the scores of a tile's 256 query columns, padding included
+                cols = 256 * -(-k // 256)
+                print(f"round {rnd} stats {label} B={k}: "
+                      f"{got[0] / (k * g):.1f} rows entered, "
+                      f"{got[1] / (k * g):.2f} compactions, "
+                      f"{got[2] / (k * g):.1f} scores past the floor a block "
+                      f"and query (G = {g}); of the scores: past the floor "
+                      f"{100.0 * got[2] / (k * nn):.3f}%, entered "
+                      f"{100.0 * got[0] / (k * nn):.3f}%, tested in place "
+                      f"(padding columns too) "
+                      f"{100.0 * got[3] / (cols * nn):.3f}%", flush=True)
+        return
     if name == "merge":
         lib = base
         g = lib.fpv_s8_topc_blocks(b, n)
@@ -398,17 +480,6 @@ def time_topc(name: str, rnd: str) -> None:
     full = fused(base)
     old = lambda: s8._topc_from_scores(s8.folded_epilogue(  # noqa: E731
         s8.s8_scores(qi, codes), qscale, const, qn, rinv, "cosine"), mask, c)
-    if name == "stats":
-        # rows that entered a list and compactions, per block and query
-        s8.SOURCE._lib = var
-        s8.s8_topc(*args, c=c, metric="cosine")
-        got = (ctypes.c_ulonglong * 2)()
-        var.fpv_s8_topc_stats(got)
-        g = var.fpv_s8_topc_blocks(b, n)
-        print(f"round {rnd} stats: {got[0] / (b * g):.1f} rows entered, "
-              f"{got[1] / (b * g):.2f} compactions a block and query "
-              f"(G = {g})", flush=True)
-        return
     t_full, t_var = ms(full), ms(variant)
     t_var2, t_full2 = ms(variant), ms(full)
     line = (f"round {rnd} {name:12s} variant {t_var:.4f} / {t_var2:.4f} ms  "
