@@ -37,7 +37,8 @@ from ..quant.scan import gather_rerank
 
 __all__ = ["grouped_ivf_search_kernel", "grouped_cell_candidates",
            "grouped_qcap", "invert_pairs", "finish_grouped", "route",
-           "probe_cells", "cell_score_args"]
+           "probe_cells", "cell_score_args", "overflow_candidates",
+           "select_candidates"]
 
 
 def grouped_qcap(b: int, nprobe: int, nlist: int, cmax: int,
@@ -210,38 +211,56 @@ def grouped_cell_candidates(qf, croute, cells, row_table, ok_cells, vmin,
                 pairs["dropped"])
 
 
+def overflow_candidates(qf, overflow_vecs, overflow_rows, ok_overflow, *,
+                        metric: DistanceMetric, k: int, compute_dtype: str):
+    """The overflow block scored exactly: (vals (B, o'), rows (B, o')),
+    lower = better (L2 squared), pre-reduced to each query's best k where
+    the block holds more than 4k rows.  The block must not be empty."""
+    b = qf.shape[0]
+    cd = getattr(torch, compute_dtype)
+    o = overflow_rows.shape[0]
+    qsq, qinv = _qstats(qf)
+    of = overflow_vecs.float()
+    ovsq = (of * of).sum(dim=1)
+    ocross = mm_f32(qf.to(cd), overflow_vecs.to(cd))
+    if metric == DistanceMetric.COSINE:
+        orinv = torch.rsqrt(torch.clamp(ovsq, min=1e-30))
+        os_ = 1.0 - ocross * qinv[:, None] * orinv[None, :]
+    elif metric == DistanceMetric.L2:
+        os_ = torch.clamp(qsq[:, None] + ovsq[None, :] - 2.0 * ocross,
+                          min=0.0)
+    else:
+        os_ = -ocross
+    os_ = torch.where(ok_overflow[None, :], os_,
+                      torch.full((), float(MASKED), device=qf.device))
+    # pre-reduce a big overflow block to k per query before the merge
+    if o > 4 * max(k, 1):
+        os_, opos = smallest_k(os_, min(k, o))
+        return os_, overflow_rows[opos]
+    return os_, overflow_rows[None].expand(b, o)
+
+
 def finish_grouped(qf, cand_vals, cand_rows, overflow_vecs, overflow_rows,
                    ok_overflow, vectors, *, metric: DistanceMetric, k: int,
                    rerank: int, compute_dtype: str):
     """Exact-score the overflow block, merge it into the candidates, then
-    exact-re-rank the top rerank*k rows against ``vectors`` or take the
-    top-k directly.  L2 candidates arrive squared and leave sqrt'd."""
-    b = qf.shape[0]
-    cd = getattr(torch, compute_dtype)
-    masked = torch.full((), float(MASKED), device=qf.device)
-    o = overflow_rows.shape[0]
-    if o > 0:
-        qsq, qinv = _qstats(qf)
-        of = overflow_vecs.float()
-        ovsq = (of * of).sum(dim=1)
-        ocross = mm_f32(qf.to(cd), overflow_vecs.to(cd))
-        if metric == DistanceMetric.COSINE:
-            orinv = torch.rsqrt(torch.clamp(ovsq, min=1e-30))
-            os_ = 1.0 - ocross * qinv[:, None] * orinv[None, :]
-        elif metric == DistanceMetric.L2:
-            os_ = torch.clamp(qsq[:, None] + ovsq[None, :] - 2.0 * ocross,
-                              min=0.0)
-        else:
-            os_ = -ocross
-        os_ = torch.where(ok_overflow[None, :], os_, masked)
-        # pre-reduce a big overflow block to k per query before the merge
-        if o > 4 * max(k, 1):
-            os_, opos = smallest_k(os_, min(k, o))
-            orows_b = overflow_rows[opos]
-        else:
-            orows_b = overflow_rows[None].expand(b, o)
+    ``select_candidates``."""
+    if overflow_rows.shape[0] > 0:
+        os_, orows_b = overflow_candidates(
+            qf, overflow_vecs, overflow_rows, ok_overflow, metric=metric,
+            k=k, compute_dtype=compute_dtype)
         cand_vals = torch.cat([cand_vals, os_], dim=1)
         cand_rows = torch.cat([cand_rows, orows_b.to(cand_rows.dtype)], dim=1)
+    return select_candidates(qf, cand_vals, cand_rows, vectors, metric=metric,
+                             k=k, rerank=rerank, compute_dtype=compute_dtype)
+
+
+def select_candidates(qf, cand_vals, cand_rows, vectors, *,
+                      metric: DistanceMetric, k: int, rerank: int,
+                      compute_dtype: str):
+    """Exact-re-rank the top rerank*k candidates against ``vectors``, or
+    take the top-k directly.  L2 candidates arrive squared and leave
+    sqrt'd."""
     if rerank > 0 and vectors is not None:
         c = int(min(max(k, k * rerank), cand_vals.shape[1]))
         cvals, cpos = smallest_k(cand_vals, c)

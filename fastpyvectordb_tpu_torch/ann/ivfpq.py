@@ -17,8 +17,15 @@ b * nprobe >= nlist, grouped (ann/ivf_grouped.py's slot tables; every probed
 cell's codes scored once per batch for all its queries by the
 ``grouped_cell_scores_pq`` kernel, kernels/ivf_kernels.py; the overflow
 block scored in ``compute_dtype`` and pre-reduced to k by
-``finish_grouped``).  Grouped candidates stay in the squared-L2 domain until
-``finish_grouped`` takes the root.
+``overflow_candidates``).  Grouped candidates stay in the squared-L2 domain
+until ``select_candidates`` takes the root.
+
+The search path records IVF's spans (``profiling.annotate``) where the
+stage is IVF's and its own where it is not: ``fpv.ann.search`` (root),
+``.upload``, ``.route``, ``.invert`` (grouped), ``.lut`` (the per-query ADC
+tables), ``.score`` (the grouped kernel, or the per-query gather and ADC
+sum), ``.regroup`` (grouped), ``.overflow`` (the exact overflow block),
+``.finish`` (the top c and the exact re-rank) and ``.fetch``.
 
 The row table, cell capacity and persisted sections are the JAX package's,
 so a file written by either package means the same index in both.  Sub-batch
@@ -37,14 +44,15 @@ import torch
 from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, mm_f32, smallest_k
 from ..kernels.ivf_kernels import grouped_cell_scores_pq
+from ..profiling import annotate
 from ..quant.kmeans import kmeans_fit, kmeans_fit_batched
 from ..quant.product import _encode as _pq_encode
 from ..quant.scan import gather_rerank
 from ..utils import next_pow2
 from .ivf import (IVFIndex, _assign_topm, _balanced_assignment, _to_numpy,
-                  ok_slot_masks)
-from .ivf_grouped import (finish_grouped, grouped_qcap, invert_pairs,
-                          probe_cells)
+                  _upload, ok_slot_masks)
+from .ivf_grouped import (grouped_qcap, invert_pairs, overflow_candidates,
+                          probe_cells, select_candidates)
 
 _ENC_CHUNK = 131_072       # rows encoded per build step
 
@@ -110,10 +118,13 @@ def pq_cell_score_args(qf, probe, codes_t, codebooks, *, qcap: int):
     table, transposed codes)."""
     b = qf.shape[0]
     nlist, m, _ = codes_t.shape
-    pairs = invert_pairs(probe, nlist, qcap)
-    lut = _query_luts(qf, codebooks).reshape(b, m * codebooks.shape[1])
-    return pairs, (pairs["cell_list"], lut.bfloat16(),
-                   pairs["qslot_c"].to(torch.int32), codes_t)
+    with annotate("fpv.ann.invert"):
+        pairs = invert_pairs(probe, nlist, qcap)
+    with annotate("fpv.ann.lut"):
+        lut = _query_luts(qf, codebooks).reshape(b, m * codebooks.shape[1])
+        lut = lut.bfloat16()
+    return pairs, (pairs["cell_list"], lut, pairs["qslot_c"].to(torch.int32),
+                   codes_t)
 
 
 def _grouped_pq_candidates(qf, qc, probe, codes_t, codebooks, norms,
@@ -130,32 +141,36 @@ def _grouped_pq_candidates(qf, qc, probe, codes_t, codebooks, norms,
     nprobe = probe.shape[1]
     pairs, args = pq_cell_score_args(qf, probe, codes_t, codebooks,
                                      qcap=qcap)
-    s = grouped_cell_scores_pq(*args)
-    # regroup: each pair's own (live) slot row; a shed pair reads its
-    # cell's last slot, which is live, and is masked below
-    u = s.shape[0]
-    flat_cell = pairs["flat_cell"]
-    flat_slot = pairs["cid_pair"] * qcap + torch.clamp(pairs["pair_rank"],
-                                                       max=qcap - 1)
-    pv = s.reshape(u * qcap, cmax)[flat_slot]                 # (Mp, cmax)
-    cross = pv + torch.take_along_dim(qc, probe, dim=1).reshape(-1)[:, None]
-    rn = norms[flat_cell]
-    rok = ok_cells[flat_cell]
-    qsq = (qf * qf).sum(dim=1)
-    if metric == DistanceMetric.COSINE:
-        qinv = (1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30))[
-            pairs["flat_q"]]
-        sc = 1.0 - cross * qinv[:, None] * torch.rsqrt(
-            torch.clamp(rn, min=1e-30))
-    elif metric == DistanceMetric.L2:
-        sc = torch.clamp(qsq[pairs["flat_q"]][:, None] + rn - 2.0 * cross,
-                         min=0.0)
-    else:
-        sc = -cross
-    sc = torch.where(pairs["pair_keep"][:, None] & rok, sc,
-                     torch.full((), float(MASKED), device=sc.device))
-    return (sc.reshape(b, nprobe * cmax),
-            row_table[flat_cell].reshape(b, nprobe * cmax), pairs["dropped"])
+    with annotate("fpv.ann.score"):
+        s = grouped_cell_scores_pq(*args)
+    with annotate("fpv.ann.regroup"):
+        # each pair's own (live) slot row; a shed pair reads its cell's
+        # last slot, which is live, and is masked below
+        u = s.shape[0]
+        flat_cell = pairs["flat_cell"]
+        flat_slot = pairs["cid_pair"] * qcap + torch.clamp(
+            pairs["pair_rank"], max=qcap - 1)
+        pv = s.reshape(u * qcap, cmax)[flat_slot]             # (Mp, cmax)
+        cross = pv + torch.take_along_dim(qc, probe, dim=1).reshape(-1)[
+            :, None]
+        rn = norms[flat_cell]
+        rok = ok_cells[flat_cell]
+        qsq = (qf * qf).sum(dim=1)
+        if metric == DistanceMetric.COSINE:
+            qinv = (1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30))[
+                pairs["flat_q"]]
+            sc = 1.0 - cross * qinv[:, None] * torch.rsqrt(
+                torch.clamp(rn, min=1e-30))
+        elif metric == DistanceMetric.L2:
+            sc = torch.clamp(qsq[pairs["flat_q"]][:, None] + rn
+                             - 2.0 * cross, min=0.0)
+        else:
+            sc = -cross
+        sc = torch.where(pairs["pair_keep"][:, None] & rok, sc,
+                         torch.full((), float(MASKED), device=sc.device))
+        return (sc.reshape(b, nprobe * cmax),
+                row_table[flat_cell].reshape(b, nprobe * cmax),
+                pairs["dropped"])
 
 
 def _grouped_ivfpq_search_kernel(q, centroids, codebooks, codes_t, norms,
@@ -170,15 +185,24 @@ def _grouped_ivfpq_search_kernel(q, centroids, codebooks, codes_t, norms,
     per-query dispatch when qcap sheds nothing (cells partition the
     corpus)."""
     qf = q.float()
-    qc, route = _pq_route(qf, centroids, metric)
-    probe = probe_cells(-route, nprobe)
+    with annotate("fpv.ann.route"):
+        qc, route = _pq_route(qf, centroids, metric)
+        probe = probe_cells(-route, nprobe)
     cand_vals, cand_rows, dropped = _grouped_pq_candidates(
         qf, qc, probe, codes_t, codebooks, norms, row_table, ok_cells,
         metric=metric, qcap=qcap)
-    vals, rows = finish_grouped(
-        qf, cand_vals, cand_rows, overflow_vecs, overflow_rows, ok_overflow,
-        vectors, metric=metric, k=k, rerank=rerank,
-        compute_dtype=compute_dtype)
+    if overflow_rows.shape[0] > 0:
+        with annotate("fpv.ann.overflow"):
+            os_, orows = overflow_candidates(
+                qf, overflow_vecs, overflow_rows, ok_overflow, metric=metric,
+                k=k, compute_dtype=compute_dtype)
+            cand_vals = torch.cat([cand_vals, os_], dim=1)
+            cand_rows = torch.cat([cand_rows, orows.to(cand_rows.dtype)],
+                                  dim=1)
+    with annotate("fpv.ann.finish"):
+        vals, rows = select_candidates(
+            qf, cand_vals, cand_rows, vectors, metric=metric, k=k,
+            rerank=rerank, compute_dtype=compute_dtype)
     return vals, rows, dropped
 
 
@@ -194,14 +218,11 @@ def _ivfpq_search_kernel(q, centroids, codebooks, codes, norms, row_table,
     nlist, cmax, m = codes.shape
     kk = codebooks.shape[1]
     qf = q.float()
-    qc, route = _pq_route(qf, centroids, metric)
-    probe = probe_cells(-route, nprobe)
-    lut = _query_luts(qf, codebooks)
-    cand = row_table[probe].reshape(b, -1)
-    ok = ok_cells[probe].reshape(b, -1)
-    adc = _adc_sum(lut, codes[probe], m, kk, b, nprobe, cmax)
-    cross = (torch.take_along_dim(qc, probe, dim=1)[:, :, None]
-             + adc).reshape(b, -1)
+    with annotate("fpv.ann.route"):
+        qc, route = _pq_route(qf, centroids, metric)
+        probe = probe_cells(-route, nprobe)
+    with annotate("fpv.ann.lut"):
+        lut = _query_luts(qf, codebooks)
     qsq = (qf * qf).sum(dim=1)
     qinv = 1.0 / torch.clamp(torch.sqrt(qsq[:, None]), min=1e-30)
 
@@ -213,22 +234,32 @@ def _ivfpq_search_kernel(q, centroids, codebooks, codes, norms, row_table,
                                           min=0.0))
         return -xr
 
-    s = metric_scores(norms[probe].reshape(b, -1), cross)
+    with annotate("fpv.ann.score"):
+        cand = row_table[probe].reshape(b, -1)
+        ok = ok_cells[probe].reshape(b, -1)
+        adc = _adc_sum(lut, codes[probe], m, kk, b, nprobe, cmax)
+        cross = (torch.take_along_dim(qc, probe, dim=1)[:, :, None]
+                 + adc).reshape(b, -1)
+        s = metric_scores(norms[probe].reshape(b, -1), cross)
     o = overflow_rows.shape[0]
     if o > 0:
-        ovsq = (overflow_vecs * overflow_vecs).sum(dim=1)
-        s = torch.cat([s, metric_scores(ovsq[None, :],
-                                        mm_f32(qf, overflow_vecs))], dim=1)
-        cand = torch.cat([cand, overflow_rows[None].expand(b, o)], dim=1)
-        ok = torch.cat([ok, ok_overflow[None].expand(b, o)], dim=1)
-    s = torch.where(ok, s, torch.full((), float(MASKED), device=s.device))
-    if not do_rerank:
-        vals, pos = smallest_k(s, k)
-        return vals, torch.take_along_dim(cand, pos, dim=1)
-    cvals, cpos = smallest_k(s, c)
-    crows = torch.take_along_dim(cand, cpos, dim=1)
-    return gather_rerank(qf, cvals, crows, vectors, metric, min(k, c),
-                         rerank_dtype)
+        with annotate("fpv.ann.overflow"):
+            ovsq = (overflow_vecs * overflow_vecs).sum(dim=1)
+            s = torch.cat([s, metric_scores(ovsq[None, :],
+                                            mm_f32(qf, overflow_vecs))],
+                          dim=1)
+            cand = torch.cat([cand, overflow_rows[None].expand(b, o)], dim=1)
+            ok = torch.cat([ok, ok_overflow[None].expand(b, o)], dim=1)
+    with annotate("fpv.ann.finish"):
+        s = torch.where(ok, s, torch.full((), float(MASKED),
+                                          device=s.device))
+        if not do_rerank:
+            vals, pos = smallest_k(s, k)
+            return vals, torch.take_along_dim(cand, pos, dim=1)
+        cvals, cpos = smallest_k(s, c)
+        crows = torch.take_along_dim(cand, cpos, dim=1)
+        return gather_rerank(qf, cvals, crows, vectors, metric, min(k, c),
+                             rerank_dtype)
 
 
 class IVFPQIndex:
@@ -379,11 +410,10 @@ class IVFPQIndex:
             real = subq.shape[0]
             # zero rows pad to a multiple of 8, as in the JAX package: they
             # take slots too, so the padding is part of the result
-            subq = np.pad(subq, ((0, (-real) % 8), (0, 0)))
-            sub_qcap = (grouped_qcap(subq.shape[0], nprobe, nlist, cmax)
+            sub_qcap = (grouped_qcap(real + (-real) % 8, nprobe, nlist, cmax)
                         if qcap is None else min(qcap, qcap_hbm))
             dd, rr, dropped = _grouped_ivfpq_search_kernel(
-                torch.as_tensor(subq).to(self.device), self.centroids,
+                _upload(subq, 8, self.device), self.centroids,
                 self.codebooks, codes_t, self.norms, self.row_table,
                 self.overflow_vecs, self.overflow_rows, okc, oko, vectors,
                 metric=cfg.metric, k=min(k, ncand), nprobe=nprobe,
@@ -403,6 +433,13 @@ class IVFPQIndex:
                grouped: Optional[bool] = None,
                qcap: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
+        with annotate("fpv.ann.search"):
+            return self._search(queries, k, mask, overfetch, nprobe, rerank,
+                                max_query_batch, grouped, qcap)
+
+    def _search(self, queries, k, mask, overfetch, nprobe, rerank,
+                max_query_batch, grouped, qcap
+                ) -> Tuple[np.ndarray, np.ndarray]:
         if self.stale:
             self.__dict__.update(self.rebuilt().__dict__)
         q = np.ascontiguousarray(queries, dtype=np.float32)
@@ -437,7 +474,7 @@ class IVFPQIndex:
         for s in range(0, q.shape[0], max_query_batch):
             sub = q[s: s + max_query_batch]
             d, r = _ivfpq_search_kernel(
-                torch.as_tensor(sub).to(self.device), self.centroids,
+                _upload(sub, 1, self.device), self.centroids,
                 self.codebooks, self.codes, self.norms, self.row_table,
                 self.overflow_vecs, self.overflow_rows, okc, oko,
                 store.vectors, metric=cfg.metric, k=min(k, ncand), c=c,

@@ -86,7 +86,14 @@ def span_collections():
                      device="cpu")
     ivf.insert_batch(v, ids)
     ivf.build_ann("ivf", nlist=16, nprobe=4, cell_dtype="int8", tune=False)
-    return {"int8": int8, "ivf": ivf, "queries": v[:64] + 0.01}
+    pq = Collection(CollectionConfig(name="p", dimensions=SPAN_DIMS),
+                    device="cpu")
+    pq.insert_batch(v, ids)
+    # one spill choice and a tight cell cap leave rows in the overflow block
+    pq.build_ann("ivfpq", nlist=32, nprobe=4, tune=False,
+                 max_cell_factor=1.05, spill_choices=1)
+    assert pq._ann.stats()["overflow_rows"] > 0
+    return {"int8": int8, "ivf": ivf, "ivfpq": pq, "queries": v[:64] + 0.01}
 
 
 # the search (one request), and the spans it records besides its root
@@ -106,6 +113,18 @@ SEARCHES = {
         {"fpv.api.assemble", "fpv.ann.search", "fpv.ann.upload",
          "fpv.ann.route", "fpv.ann.gather_score", "fpv.ann.finish",
          "fpv.ann.fetch"}),
+    "ivfpq_grouped": (
+        lambda c: c["ivfpq"].search_arrays(c["queries"], k=5, exact=False),
+        {"fpv.api.assemble", "fpv.ann.search", "fpv.ann.upload",
+         "fpv.ann.route", "fpv.ann.invert", "fpv.ann.lut", "fpv.ann.score",
+         "fpv.ann.regroup", "fpv.ann.overflow", "fpv.ann.finish",
+         "fpv.ann.fetch"}),
+    "ivfpq_query_major": (
+        lambda c: c["ivfpq"].search_arrays(c["queries"][:1], k=5,
+                                           exact=False),
+        {"fpv.api.assemble", "fpv.ann.search", "fpv.ann.upload",
+         "fpv.ann.route", "fpv.ann.lut", "fpv.ann.score", "fpv.ann.overflow",
+         "fpv.ann.finish", "fpv.ann.fetch"}),
 }
 
 
