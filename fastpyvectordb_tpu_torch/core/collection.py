@@ -16,6 +16,7 @@ JAX package, and goes through ``state.collection_from_sections``.
 from __future__ import annotations
 
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,6 +36,11 @@ STORE_FILE = "collection.fpvt"
 # the recall knobs of each ANN kind: an explicit one turns auto-tune off
 _ANN_KNOBS = {"ivf": ("nprobe",), "ivfpq": ("nprobe", "rerank"),
               "graph": ("beam", "iters")}
+
+# result assemblies by path: "clean" where every slot was valid and nothing
+# was touched after the gather, "patched" where invalid slots were blanked
+# (tombstones, filters, k > count, masked hits)
+ASSEMBLIES = Counter(clean=0, patched=0)
 
 
 def _host(q) -> np.ndarray:
@@ -65,6 +71,7 @@ class Collection:
         self._columns_patchset: set = set()
         self._mask_cache: Dict[str, Tuple[int, np.ndarray]] = {}
         self._ids_arr: Optional[np.ndarray] = None
+        self._ids_live: Optional[np.ndarray] = None
         self._ids_arr_version = -1
         self._quantized = None  # optional quantized scan (quant/scan.py)
         self._quant_kwargs: dict = {}  # its build recipe, for rebuilds
@@ -385,20 +392,42 @@ class Collection:
         """(dists, rows) -> the (ids, scores, rows) triple of
         ``search_arrays``.  Caller holds the lock."""
         with annotate("fpv.api.assemble"):
-            dists = np.asarray(dists)[:, :k].astype(np.float32, copy=False)
-            rows = np.asarray(rows)[:, :k]
-            ok = np.asarray(topk_mod.valid_hits(dists))
-            nrow = len(self._row_to_id)
-            ok &= (rows >= 0) & (rows < max(nrow, 1))
-            if nrow:
-                ids = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
-                ok &= ids != None  # noqa: E711 - elementwise
-            else:
-                ids = np.full(rows.shape, None, dtype=object)
-            ids = np.where(ok, ids, None)
-            dists = np.where(ok, dists, np.float32(np.inf))
-            rows = np.where(ok, rows, -1).astype(np.int32, copy=False)
-            return ids, dists, rows
+            ids, scores, rows, _ = self._hits(
+                np.asarray(dists)[:, :k].astype(np.float32, copy=False),
+                np.asarray(rows)[:, :k])
+            return ids, scores, rows
+
+    def _hits(self, dists, rows):
+        """A search path's (B, w) scores and store rows -> ``(ids, scores,
+        rows, ok)``: the object id grid, fresh contiguous float32 scores and
+        int32 rows, and the validity mask.  A slot is valid when its score
+        is not masked, its row is in [0, len(_row_to_id)) and that row holds
+        an id; invalid slots read None / +inf / -1.  The mask is built from
+        numbers alone and the ids come from one object gather, so an
+        all-valid grid is never touched again.  Caller holds the lock."""
+        dists = np.asarray(dists)
+        rows = np.asarray(rows)
+        ok = np.asarray(topk_mod.valid_hits(dists))
+        ids_arr, live = self._id_columns()
+        n = len(ids_arr)
+        ok &= (rows >= 0) & (rows < n)
+        if n:
+            safe = np.clip(rows, 0, n - 1)
+            ok &= live.take(safe)
+            ids = ids_arr.take(safe)
+        else:
+            ids = np.full(rows.shape, None, dtype=object)
+        scores = np.array(dists, dtype=np.float32)
+        rows = rows.astype(np.int32)
+        if ok.all():
+            ASSEMBLIES["clean"] += 1
+        else:
+            ASSEMBLIES["patched"] += 1
+            bad = ~ok
+            ids[bad] = None
+            scores[bad] = np.inf
+            rows[bad] = -1
+        return ids, scores, rows, ok
 
     def metadata_for_rows(self, rows: np.ndarray) -> list:
         """Per-row metadata dict copies for ``search_arrays`` results
@@ -508,28 +537,21 @@ class Collection:
             b <<= 1
         return timings
 
-    def _ids_object_array(self) -> np.ndarray:
-        """``_row_to_id`` as an object ndarray, memoized per version."""
+    def _id_columns(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``_row_to_id`` as an object ndarray, and the bool array of the
+        rows that hold an id, memoized per version."""
         if self._ids_arr is None or self._ids_arr_version != self._version \
                 or len(self._ids_arr) != len(self._row_to_id):
             self._ids_arr = np.array(self._row_to_id, dtype=object)
+            self._ids_live = self._ids_arr != None  # noqa: E711
             self._ids_arr_version = self._version
-        return self._ids_arr
+        return self._ids_arr, self._ids_live
 
     def _assemble(self, q, dists: np.ndarray, rows: np.ndarray,
                   k: int, include_vectors: bool) -> List[List[SearchResult]]:
         with annotate("fpv.api.assemble"):
             dists = np.asarray(dists)
-            rows = np.asarray(rows)
-            ok = np.asarray(topk_mod.valid_hits(dists))
-            nrow = len(self._row_to_id)
-            in_range = (rows >= 0) & (rows < nrow)
-            if nrow:
-                rid_grid = self._ids_object_array()[np.clip(rows, 0, nrow - 1)]
-                ok = ok & in_range & (rid_grid != None)  # noqa: E711
-            else:
-                ok = ok & in_range
-                rid_grid = rows  # unused: ok is all-False
+            ids, _, rows, ok = self._hits(dists, rows)
             if include_vectors:
                 vecs = self._store.get_rows(
                     np.maximum(rows, 0).reshape(-1).astype(np.int64)
@@ -537,7 +559,7 @@ class Collection:
             md = self._metadata
             dlist = dists.tolist()
             rlist = rows.tolist()
-            idlist = rid_grid.tolist() if nrow else rlist
+            idlist = ids.tolist()
             all_ok = bool(ok.all())
             full_sel = list(range(min(k, rows.shape[1])))
             results: List[List[SearchResult]] = []
