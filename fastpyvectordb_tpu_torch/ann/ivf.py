@@ -34,7 +34,8 @@ from ..quant.kmeans import kmeans_fit
 from ..quant.scalar import ScalarQuantizer, _dequant, _encode, _train
 from ..quant.scan import gather_rerank
 from ..utils import next_pow2
-from .ivf_grouped import (grouped_ivf_search_kernel, grouped_qcap,
+from .ivf_grouped import (_metric_scores, _qstats,
+                          grouped_ivf_search_kernel, grouped_qcap,
                           probe_cells, route)
 
 
@@ -199,23 +200,12 @@ def _ivf_search_kernel(q, centroids, cells, row_table, overflow_vecs,
     cd = getattr(torch, compute_dtype)
     with annotate("fpv.ann.route"):
         probe = probe_cells(route(qf, centroids, metric), nprobe)
-
-    def metric_scores(vsq, cross):
-        if metric == DistanceMetric.COSINE:
-            return 1.0 - cross * qinv[:, None] * torch.rsqrt(
-                torch.clamp(vsq, min=1e-30))
-        if metric == DistanceMetric.L2:
-            return torch.sqrt(torch.clamp(qsq[:, None] + vsq - 2.0 * cross,
-                                          min=0.0))
-        return -cross
-
     with annotate("fpv.ann.gather_score"):
         vecs = cells[probe].reshape(b, nprobe * cmax, d)
         cand = row_table[probe].reshape(b, -1)
         ok = ok_cells[probe].reshape(b, -1)
         vsq = cell_norms[probe].reshape(b, -1)
-        qsq = (qf * qf).sum(dim=1)
-        qinv = 1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30)
+        qsq, qinv = _qstats(qf)
         if cells.dtype == torch.int8:
             # q . dequant(c) = (q * rs) . c + q . (128 rs + vmin): the
             # gathered block stays codes; norms are the dequantised rows'
@@ -225,13 +215,14 @@ def _ivf_search_kernel(q, centroids, cells, row_table, overflow_vecs,
                             vecs.to(cd))[:, 0, :] + const[:, None]
         else:
             cross = bmm_f32(qf.to(cells.dtype)[:, None, :], vecs)[:, 0, :]
-        s = metric_scores(vsq, cross)
+        s = _metric_scores(metric, cross, vsq, qsq, qinv, sqrt_l2=True)
         o = overflow_rows.shape[0]
         if o > 0:
             of = overflow_vecs.float()
             ocross = mm_f32(qf.to(cd), overflow_vecs.to(cd))
-            s = torch.cat([s, metric_scores((of * of).sum(dim=1)[None, :],
-                                            ocross)], dim=1)
+            s = torch.cat([s, _metric_scores(
+                metric, ocross, (of * of).sum(dim=1)[None, :], qsq, qinv,
+                sqrt_l2=True)], dim=1)
             cand = torch.cat([cand, overflow_rows[None].expand(b, o)],
                              dim=1)
             ok = torch.cat([ok, ok_overflow[None].expand(b, o)], dim=1)
@@ -262,27 +253,38 @@ def _to_numpy(d: torch.Tensor, r: torch.Tensor, real: int):
                 r[:real].to(torch.int32).cpu().numpy())
 
 
-class IVFIndex:
-    """Inverted-file flat index over a collection's device store; its
-    tensors live on the collection's device."""
+class InvertedFile:
+    """What IVF and IVF-PQ share: cells of rows around ``nlist`` centroids
+    (a (nlist, cmax) row table, -1 = padding) and an always-scanned overflow
+    block over a collection's store, and the search path between the
+    collection and the kernels: the query intake, the choice of dispatch,
+    one sub-batch loop, and the pairs a full cell shed, kept on the card.
 
-    def __init__(self, centroids: torch.Tensor, cells: torch.Tensor,
-                 row_table: torch.Tensor, overflow_vecs: torch.Tensor,
-                 overflow_rows: torch.Tensor, collection, nprobe: int):
+    A kind supplies its tensors, ``_kernel`` (its two dispatches' kernel
+    calls), ``_k_max`` (the candidates a query can have) and the values
+    that size a query-major sub-batch (``_query_bytes``, ``_QM_BUDGET``,
+    ``_QM_PAD``) and, where its regroup bounds it, a grouped one
+    (``_REGROUP_BYTES``).  They decide results or memory, so they are
+    constants of the kind and nothing a caller sets."""
+
+    _QM_BUDGET: int            # default query-major budget, bytes
+    _QM_PAD: int               # query-major pad multiple (capped by the batch)
+    _REGROUP_BYTES = 0         # grouped regroup bytes a (pair, cell row)
+
+    def __init__(self, centroids: torch.Tensor, row_table: torch.Tensor,
+                 overflow_vecs: torch.Tensor, overflow_rows: torch.Tensor,
+                 collection, nprobe: int, rerank: int):
         self.device = collection._store.device
         self.centroids = centroids        # (nlist, D) f32
-        self.cells = cells                # (nlist, cmax, D) serving dtype
         self.row_table = row_table        # (nlist, cmax) int32, -1 = padding
         self.overflow_vecs = overflow_vecs  # (O, D) always-scanned block
         self.overflow_rows = overflow_rows  # (O,) int32, -1 = padding
         self._collection = collection
         self.nprobe = nprobe
-        self.rerank = 0          # exact re-rank factor (int8 builds set 4)
+        self.rerank = rerank
         self.stale = False
         self._built_count = collection._store.count
         self._built_n_valid = collection._store.n_valid
-        self.quantizer = None    # set when cells are int8 codes
-        self.cell_norms = None   # (nlist, cmax) f32
         self._dropped = []       # the last grouped search's shed counts
         self.last_qcap = None
         self._free_bytes = None  # device memory free at the first search
@@ -292,6 +294,162 @@ class IVFIndex:
         """Pairs the last grouped search shed where a cell was full.  Kept
         on the card and read here, so the search never waits for it."""
         return sum(int(x) for x in self._dropped)
+
+    def _mem_budget(self, default: int) -> int:
+        """Bytes a search dispatch's largest transient may take: a quarter
+        of the card's memory free at the index's first search on CUDA;
+        elsewhere the JAX package's constant (sized for a 16 GB chip).
+        It only splits batches."""
+        if self.device.type != "cuda":
+            return default
+        if self._free_bytes is None:
+            self._free_bytes = torch.cuda.mem_get_info(self.device)[0]
+        return int(self._free_bytes // 4)
+
+    def _search(self, queries, k, mask, overfetch, nprobe, rerank,
+                max_query_batch, grouped, qcap
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        with annotate("fpv.ann.search"):
+            if self.stale:
+                self.__dict__.update(self.rebuilt().__dict__)
+            q = np.ascontiguousarray(queries, dtype=np.float32)
+            if q.ndim == 1:
+                q = q[None, :]
+            nlist, cmax = self.row_table.shape
+            nprobe = int(min(nprobe or self.nprobe, nlist))
+            if mask is not None and overfetch > 1:
+                # filtered queries: the mask is fused into candidate
+                # scoring, so recall under selective filters is recovered
+                # by probing more cells (the IVF analogue of over-fetching)
+                nprobe = int(min(nlist, nprobe * overfetch))
+            okc, oko = ok_slot_masks(
+                self, np.ascontiguousarray(mask, dtype=bool)
+                if mask is not None and not isinstance(mask, np.ndarray)
+                else mask)
+            rr = int(self.rerank if rerank is None else rerank)
+            k = min(k, self._k_max(nprobe))
+            # large batches go cell-major: once the per-query gather would
+            # move more than the whole cell tensor, read each cell once
+            if grouped is None:
+                grouped = q.shape[0] * nprobe >= nlist
+            if grouped:
+                # sub-batches keep an (nlist, qcap, cmax) f32 block, and a
+                # kind's regroup temporaries, under the budget
+                budget = self._mem_budget(2 << 30)
+                qcap_hbm = max(8, int(budget // max(nlist * cmax * 4, 1)))
+                step = max(8, (qcap_hbm * nlist) // (4 * nprobe) // 8 * 8)
+                if self._REGROUP_BYTES:
+                    step = min(step, max(8, int(budget // max(
+                        nprobe * cmax * self._REGROUP_BYTES, 1)) // 8 * 8))
+
+                def qcap_of(real: int) -> int:
+                    # zero rows pad to a multiple of 8, as in the JAX
+                    # package: they take slots too, so the padding is part
+                    # of the result
+                    return int(grouped_qcap(real + (-real) % 8, nprobe,
+                                            nlist, cmax)
+                               if qcap is None else min(qcap, qcap_hbm))
+                return self._sub_batches(
+                    q, step, 8, self._kernel(True, k, okc, oko, nprobe, rr),
+                    qcap_of)
+            per_q = max(self._query_bytes(nprobe), 1)
+            safe_b = max(8, int(self._mem_budget(self._QM_BUDGET) // per_q)
+                         // 8 * 8)
+            step = int(min(max_query_batch, safe_b))
+            return self._sub_batches(
+                q, step, min(step, self._QM_PAD),
+                self._kernel(False, k, okc, oko, nprobe, rr))
+
+    def _sub_batches(self, q: np.ndarray, step: int, pad: int, kernel,
+                     qcap_of=None) -> Tuple[np.ndarray, np.ndarray]:
+        """``kernel`` over ``q`` ``step`` rows at a time, each sub-batch
+        uploaded with zero rows to a multiple of ``pad``, its answers
+        fetched and concatenated.  Grouped (``qcap_of``: a sub-batch's real
+        rows -> its qcap), the kernel also returns the pairs it shed, which
+        stay on the card."""
+        if qcap_of is not None:
+            self._dropped = []
+        outs_d, outs_r = [], []
+        for s in range(0, q.shape[0], step):
+            sub = q[s: s + step]
+            real = sub.shape[0]
+            qd = _upload(sub, pad, self.device)
+            if qcap_of is None:
+                d, r = kernel(qd)
+            else:
+                sub_qcap = qcap_of(real)
+                d, r, dropped = kernel(qd, sub_qcap)
+                self._dropped.append(dropped)
+                self.last_qcap = sub_qcap
+            d, r = _to_numpy(d, r, real)
+            outs_d.append(d)
+            outs_r.append(r)
+        return np.concatenate(outs_d), np.concatenate(outs_r)
+
+    # ------------------------------------------------------------------
+    def mark_stale(self) -> None:
+        self.stale = True
+
+    def rebuilt(self) -> "InvertedFile":
+        """A fresh index built with this index's recipe over the
+        collection's current rows: the original build parameters, with the
+        runtime knobs (``nprobe``, ``rerank``) carried over.  Used by the
+        stale path and by the collection's background rebuild."""
+        kw = dict(getattr(self, "_build_kwargs", {}))
+        kw.setdefault("nlist", self.centroids.shape[0])
+        kw["nprobe"] = self.nprobe
+        new = self._rebuild(kw)
+        new._build_kwargs = dict(getattr(self, "_build_kwargs", {}))
+        return new
+
+    def _loaded(self, meta: dict) -> "InvertedFile":
+        self._built_count = int(meta["built_count"])
+        # growth past built_count is served by the collection's tail merge;
+        # only an impossible shrink (container mismatch) forces a rebuild
+        self.stale = self._built_count > self._collection._store.count
+        return self
+
+    def _recall(self, rows, exact_r, k: int) -> float:
+        return float(np.mean([len(set(a.tolist()) & set(e.tolist())) / k
+                              for a, e in zip(rows, exact_r)]))
+
+    def tune_nprobe(self, queries: np.ndarray, target_recall: float = 0.95,
+                    k: int = 10, max_nprobe: Optional[int] = None) -> int:
+        """The smallest nprobe (from nprobe/4, doubling) whose recall@k
+        against the exact scan clears ``target_recall`` on the given
+        queries; sets and returns it."""
+        store = self._collection._store
+        cfg = self._collection.config
+        _, exact_r = store.search(queries, k, cfg.metric,
+                                  compute_dtype=cfg.compute_dtype)
+        limit = max_nprobe or self.centroids.shape[0]
+        nprobe = max(1, self.nprobe // 4)
+        while nprobe <= limit:
+            _, r = self.search(queries, k, nprobe=nprobe)
+            if self._recall(r, exact_r, k) >= target_recall:
+                self.nprobe = nprobe
+                return nprobe
+            nprobe *= 2
+        self.nprobe = limit
+        return limit
+
+
+class IVFIndex(InvertedFile):
+    """Inverted-file flat index over a collection's device store; its
+    tensors live on the collection's device."""
+
+    _QM_BUDGET = 4 << 30
+    _QM_PAD = 8
+
+    def __init__(self, centroids: torch.Tensor, cells: torch.Tensor,
+                 row_table: torch.Tensor, overflow_vecs: torch.Tensor,
+                 overflow_rows: torch.Tensor, collection, nprobe: int):
+        # rerank: the exact re-rank factor (int8 builds set 4)
+        super().__init__(centroids, row_table, overflow_vecs, overflow_rows,
+                         collection, nprobe, rerank=0)
+        self.cells = cells                # (nlist, cmax, D) serving dtype
+        self.quantizer = None    # set when cells are int8 codes
+        self.cell_norms = None   # (nlist, cmax) f32
 
     # ------------------------------------------------------------------
     @classmethod
@@ -359,24 +517,12 @@ class IVFIndex:
             idx.rerank = 4
         return idx
 
-    # ------------------------------------------------------------------
     def _quant_params(self):
         if self.quantizer is not None:
             return self.quantizer.vmin, self.quantizer.scale
         d = self.centroids.shape[1]
         return (torch.zeros((d,), device=self.device),
                 torch.ones((d,), device=self.device))
-
-    def _mem_budget(self, default: int) -> int:
-        """Bytes a search dispatch's largest transient may take: a quarter
-        of the card's memory free at the index's first search on CUDA;
-        elsewhere the JAX package's constant (sized for a 16 GB chip).
-        It only splits batches."""
-        if self.device.type != "cuda":
-            return default
-        if self._free_bytes is None:
-            self._free_bytes = torch.cuda.mem_get_info(self.device)[0]
-        return int(self._free_bytes // 4)
 
     def _cell_norms_cached(self) -> torch.Tensor:
         """Per-(cell, position) squared row norms, built once: int8 builds
@@ -389,43 +535,32 @@ class IVFIndex:
                                           sq.reshape(nlist, cmax), 0.0)
         return self.cell_norms
 
-    def _search_grouped(self, q: np.ndarray, k: int, okc, oko, nprobe: int,
-                        qcap: Optional[int] = None, rerank: int = 0
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-        """Cell-major batched dispatch (ivf_grouped.py): each probed cell
-        is read once per batch and scored against all queries probing
-        it."""
+    def _k_max(self, nprobe: int) -> int:
+        return self.row_table.shape[1] * nprobe
+
+    def _query_bytes(self, nprobe: int) -> int:
+        # the per-query gather: (nprobe, cmax, D) cells plus their
+        # converted copy
+        return (nprobe * self.row_table.shape[1] * self.centroids.shape[1]
+                * (self.cells.element_size() + 4))
+
+    def _kernel(self, grouped: bool, k: int, okc, oko, nprobe: int,
+                rerank: int):
+        """Grouped: cell-major (ivf_grouped.py), each probed cell read once
+        per batch and scored against all queries probing it; else the
+        per-query gather."""
         cfg = self._collection.config
-        nlist, cmax = self.row_table.shape
         vmin, scale = self._quant_params()
-        cnorms = self._cell_norms_cached()
-        # sub-batches keep an (nlist, qcap, cmax) f32 block under the budget
-        budget = self._mem_budget(2 << 30)
-        qcap_hbm = max(8, int(budget // max(nlist * cmax * 4, 1)))
-        sub_max = max(8, (qcap_hbm * nlist) // (4 * nprobe) // 8 * 8)
-        vectors = self._collection._store.vectors if rerank > 0 else None
-        outs_d, outs_r = [], []
-        self._dropped = []
-        for s in range(0, q.shape[0], sub_max):
-            subq = q[s: s + sub_max]
-            real = subq.shape[0]
-            # zero rows pad to a multiple of 8, as in the JAX package: they
-            # take slots too, so the padding is part of the result
-            sub_qcap = (grouped_qcap(real + (-real) % 8, nprobe, nlist, cmax)
-                        if qcap is None else min(qcap, qcap_hbm))
-            dd, rr, dropped = grouped_ivf_search_kernel(
-                _upload(subq, 8, self.device), self.centroids, self.cells,
-                self.row_table, self.overflow_vecs, self.overflow_rows, okc,
-                oko, vmin, scale, cnorms, vectors, metric=cfg.metric,
-                k=min(k, cmax * nprobe), nprobe=nprobe,
-                qcap=int(sub_qcap), compute_dtype=cfg.compute_dtype,
-                rerank=rerank)
-            self._dropped.append(dropped)
-            self.last_qcap = int(sub_qcap)
-            d_, r_ = _to_numpy(dd, rr, real)
-            outs_d.append(d_)
-            outs_r.append(r_)
-        return np.concatenate(outs_d), np.concatenate(outs_r)
+        args = (self.centroids, self.cells, self.row_table,
+                self.overflow_vecs, self.overflow_rows, okc, oko, vmin, scale,
+                self._cell_norms_cached(),
+                self._collection._store.vectors if rerank > 0 else None)
+        kw = dict(metric=cfg.metric, k=k, nprobe=nprobe,
+                  compute_dtype=cfg.compute_dtype, rerank=rerank)
+        if grouped:
+            return lambda q, qcap: grouped_ivf_search_kernel(
+                q, *args, qcap=qcap, **kw)
+        return lambda q: _ivf_search_kernel(q, *args, **kw)
 
     def search(self, queries: np.ndarray, k: int,
                mask: Optional[np.ndarray] = None, overfetch: int = 1,
@@ -435,79 +570,15 @@ class IVFIndex:
                qcap: Optional[int] = None,
                rerank: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
-        with annotate("fpv.ann.search"):
-            return self._search(queries, k, mask, overfetch, nprobe,
-                                max_query_batch, grouped, qcap, rerank)
-
-    def _search(self, queries, k, mask, overfetch, nprobe, max_query_batch,
-                grouped, qcap, rerank) -> Tuple[np.ndarray, np.ndarray]:
-        if self.stale:
-            self.__dict__.update(self.rebuilt().__dict__)
-        q = np.ascontiguousarray(queries, dtype=np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        nlist, cmax = self.row_table.shape
-        nprobe = int(min(nprobe or self.nprobe, nlist))
-        if mask is not None and overfetch > 1:
-            # filtered queries: the mask is fused into candidate scoring,
-            # so recall under selective filters is recovered by probing
-            # more cells (the IVF analogue of over-fetching)
-            nprobe = int(min(nlist, nprobe * overfetch))
-        okc, oko = ok_slot_masks(
-            self, np.ascontiguousarray(mask, dtype=bool) if mask is not None
-            and not isinstance(mask, np.ndarray) else mask)
-        rr = int(self.rerank if rerank is None else rerank)
-        # large batches go cell-major: once the per-query gather would
-        # move more than the whole cell tensor, read each cell once
-        if grouped is None:
-            grouped = q.shape[0] * nprobe >= nlist
-        if grouped:
-            return self._search_grouped(q, k, okc, oko, nprobe, qcap=qcap,
-                                        rerank=rr)
-        cfg = self._collection.config
-        vmin, scale = self._quant_params()
-        cnorms = self._cell_norms_cached()
-        vectors = self._collection._store.vectors if rr > 0 else None
-        # bound the per-dispatch gather: (b, nprobe, cmax, D) cells plus
-        # their converted copy
-        per_q = max(nprobe * cmax * self.centroids.shape[1]
-                    * (self.cells.element_size() + 4), 1)
-        safe_b = max(8, int(self._mem_budget(4 << 30) // per_q)
-                     // 8 * 8)
-        max_query_batch = int(min(max_query_batch, safe_b))
-        outs_d, outs_r = [], []
-        for s in range(0, q.shape[0], max_query_batch):
-            sub = q[s: s + max_query_batch]
-            real = sub.shape[0]
-            d, r = _ivf_search_kernel(
-                _upload(sub, min(max_query_batch, 8), self.device),
-                self.centroids, self.cells, self.row_table,
-                self.overflow_vecs, self.overflow_rows, okc, oko, vmin,
-                scale, cnorms, vectors,
-                metric=cfg.metric, k=min(k, cmax * nprobe), nprobe=nprobe,
-                compute_dtype=cfg.compute_dtype, rerank=rr)
-            d_, r_ = _to_numpy(d, r, real)
-            outs_d.append(d_)
-            outs_r.append(r_)
-        return np.concatenate(outs_d), np.concatenate(outs_r)
+        return self._search(queries, k, mask, overfetch, nprobe, rerank,
+                            max_query_batch, grouped, qcap)
 
     # ------------------------------------------------------------------
-    def mark_stale(self) -> None:
-        self.stale = True
-
-    def rebuilt(self) -> "IVFIndex":
-        """A fresh index built with this index's recipe over the
-        collection's current rows: the original build parameters, with the
-        runtime knobs (``nprobe``, ``rerank``) carried over.  Used by the
-        stale path and by the collection's background rebuild."""
-        kw = dict(getattr(self, "_build_kwargs", {}))
-        kw.setdefault("nlist", self.centroids.shape[0])
-        kw["nprobe"] = self.nprobe
+    def _rebuild(self, kw: dict) -> "IVFIndex":
         if self.quantizer is not None:
             kw.setdefault("cell_dtype", "int8")
         new = IVFIndex.build(self._collection, **kw)
         new.rerank = self.rerank
-        new._build_kwargs = dict(getattr(self, "_build_kwargs", {}))
         return new
 
     def stats(self) -> dict:
@@ -585,31 +656,4 @@ class IVFIndex:
         # older containers predate the rerank knob: the build default of
         # their cell dtype (int8 -> 4, serving dtype -> 0)
         idx.rerank = int(meta.get("rerank", 4 if quant is not None else 0))
-        idx._built_count = int(meta["built_count"])
-        # growth past built_count is served by the collection's tail merge;
-        # only an impossible shrink (container mismatch) forces a rebuild
-        idx.stale = idx._built_count > store.count
-        return idx
-
-    def tune_nprobe(self, queries: np.ndarray, target_recall: float = 0.95,
-                    k: int = 10, max_nprobe: Optional[int] = None) -> int:
-        """The smallest nprobe (from nprobe/4, doubling) whose recall@k
-        against the exact scan clears ``target_recall`` on the given
-        queries; sets and returns it."""
-        store = self._collection._store
-        cfg = self._collection.config
-        _, exact_r = store.search(queries, k, cfg.metric,
-                                  compute_dtype=cfg.compute_dtype)
-        limit = max_nprobe or self.centroids.shape[0]
-        nprobe = max(1, self.nprobe // 4)
-        while nprobe <= limit:
-            _, r = self.search(queries, k, nprobe=nprobe)
-            hits = np.mean([
-                len(set(a.tolist()) & set(e.tolist())) / k
-                for a, e in zip(r, exact_r)])
-            if hits >= target_recall:
-                self.nprobe = nprobe
-                return nprobe
-            nprobe *= 2
-        self.nprobe = limit
-        return limit
+        return idx._loaded(meta)

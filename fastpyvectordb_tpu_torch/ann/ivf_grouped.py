@@ -137,9 +137,37 @@ def invert_pairs(probe: torch.Tensor, nlist: int, qcap: int) -> dict:
     }
 
 
+def _qinv(qsq: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30)
+
+
 def _qstats(qf: torch.Tensor):
+    """The queries' (B,) squared norms and inverse norms."""
     qsq = (qf * qf).sum(dim=1)
-    return qsq, 1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30)
+    return qsq, _qinv(qsq)
+
+
+def _metric_scores(metric: DistanceMetric, cross, vsq, qsq, qinv=None, *,
+                   sqrt_l2: bool, rows=None):
+    """Scores, lower = better, from cross terms ``q . x`` (R, C) and the
+    rows' squared norms ``vsq`` (broadcast against ``cross``).  ``qsq`` /
+    ``qinv`` are per query, (R,); with ``rows`` (R,) they are (B,) and
+    ``rows`` names each cross row's query.  A missing ``qinv`` is derived
+    from ``qsq`` where cosine needs it.  L2 stays squared unless
+    ``sqrt_l2``."""
+    if metric == DistanceMetric.COSINE:
+        if qinv is None:
+            qinv = _qinv(qsq)
+        if rows is not None:
+            qinv = qinv[rows]
+        return 1.0 - cross * qinv[:, None] * torch.rsqrt(
+            torch.clamp(vsq, min=1e-30))
+    if metric == DistanceMetric.L2:
+        if rows is not None:
+            qsq = qsq[rows]
+        d2 = torch.clamp(qsq[:, None] + vsq - 2.0 * cross, min=0.0)
+        return torch.sqrt(d2) if sqrt_l2 else d2
+    return -cross
 
 
 def cell_score_args(qf, pairs: dict, cells, ok_cells, vmin, scale,
@@ -223,14 +251,8 @@ def overflow_candidates(qf, overflow_vecs, overflow_rows, ok_overflow, *,
     of = overflow_vecs.float()
     ovsq = (of * of).sum(dim=1)
     ocross = mm_f32(qf.to(cd), overflow_vecs.to(cd))
-    if metric == DistanceMetric.COSINE:
-        orinv = torch.rsqrt(torch.clamp(ovsq, min=1e-30))
-        os_ = 1.0 - ocross * qinv[:, None] * orinv[None, :]
-    elif metric == DistanceMetric.L2:
-        os_ = torch.clamp(qsq[:, None] + ovsq[None, :] - 2.0 * ocross,
-                          min=0.0)
-    else:
-        os_ = -ocross
+    os_ = _metric_scores(metric, ocross, ovsq[None, :], qsq, qinv,
+                         sqrt_l2=False)
     os_ = torch.where(ok_overflow[None, :], os_,
                       torch.full((), float(MASKED), device=qf.device))
     # pre-reduce a big overflow block to k per query before the merge

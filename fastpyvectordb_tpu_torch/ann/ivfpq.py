@@ -29,7 +29,7 @@ sum), ``.regroup`` (grouped), ``.overflow`` (the exact overflow block),
 
 The row table, cell capacity and persisted sections are the JAX package's,
 so a file written by either package means the same index in both.  Sub-batch
-caps derive from the card's free memory (``IVFIndex._mem_budget``) instead
+caps derive from the card's free memory (``InvertedFile._mem_budget``) instead
 of the JAX package's constants sized for a 16 GB chip.
 """
 
@@ -49,10 +49,10 @@ from ..quant.kmeans import kmeans_fit, kmeans_fit_batched
 from ..quant.product import _encode as _pq_encode
 from ..quant.scan import gather_rerank
 from ..utils import next_pow2
-from .ivf import (IVFIndex, _assign_topm, _balanced_assignment, _to_numpy,
-                  _upload, ok_slot_masks)
-from .ivf_grouped import (grouped_qcap, invert_pairs, overflow_candidates,
-                          probe_cells, select_candidates)
+from .ivf import InvertedFile, _assign_topm, _balanced_assignment
+from .ivf_grouped import (_metric_scores, _qstats, invert_pairs,
+                          overflow_candidates, probe_cells,
+                          select_candidates)
 
 _ENC_CHUNK = 131_072       # rows encoded per build step
 
@@ -155,17 +155,8 @@ def _grouped_pq_candidates(qf, qc, probe, codes_t, codebooks, norms,
             :, None]
         rn = norms[flat_cell]
         rok = ok_cells[flat_cell]
-        qsq = (qf * qf).sum(dim=1)
-        if metric == DistanceMetric.COSINE:
-            qinv = (1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30))[
-                pairs["flat_q"]]
-            sc = 1.0 - cross * qinv[:, None] * torch.rsqrt(
-                torch.clamp(rn, min=1e-30))
-        elif metric == DistanceMetric.L2:
-            sc = torch.clamp(qsq[pairs["flat_q"]][:, None] + rn
-                             - 2.0 * cross, min=0.0)
-        else:
-            sc = -cross
+        sc = _metric_scores(metric, cross, rn, (qf * qf).sum(dim=1),
+                            sqrt_l2=False, rows=pairs["flat_q"])
         sc = torch.where(pairs["pair_keep"][:, None] & rok, sc,
                          torch.full((), float(MASKED), device=sc.device))
         return (sc.reshape(b, nprobe * cmax),
@@ -223,31 +214,22 @@ def _ivfpq_search_kernel(q, centroids, codebooks, codes, norms, row_table,
         probe = probe_cells(-route, nprobe)
     with annotate("fpv.ann.lut"):
         lut = _query_luts(qf, codebooks)
-    qsq = (qf * qf).sum(dim=1)
-    qinv = 1.0 / torch.clamp(torch.sqrt(qsq[:, None]), min=1e-30)
-
-    def metric_scores(vsq, xr):
-        if metric == DistanceMetric.COSINE:
-            return 1.0 - xr * qinv * torch.rsqrt(torch.clamp(vsq, min=1e-30))
-        if metric == DistanceMetric.L2:
-            return torch.sqrt(torch.clamp(qsq[:, None] + vsq - 2.0 * xr,
-                                          min=0.0))
-        return -xr
-
+    qsq, qinv = _qstats(qf)
     with annotate("fpv.ann.score"):
         cand = row_table[probe].reshape(b, -1)
         ok = ok_cells[probe].reshape(b, -1)
         adc = _adc_sum(lut, codes[probe], m, kk, b, nprobe, cmax)
         cross = (torch.take_along_dim(qc, probe, dim=1)[:, :, None]
                  + adc).reshape(b, -1)
-        s = metric_scores(norms[probe].reshape(b, -1), cross)
+        s = _metric_scores(metric, cross, norms[probe].reshape(b, -1), qsq,
+                           qinv, sqrt_l2=True)
     o = overflow_rows.shape[0]
     if o > 0:
         with annotate("fpv.ann.overflow"):
             ovsq = (overflow_vecs * overflow_vecs).sum(dim=1)
-            s = torch.cat([s, metric_scores(ovsq[None, :],
-                                            mm_f32(qf, overflow_vecs))],
-                          dim=1)
+            s = torch.cat([s, _metric_scores(
+                metric, mm_f32(qf, overflow_vecs), ovsq[None, :], qsq, qinv,
+                sqrt_l2=True)], dim=1)
             cand = torch.cat([cand, overflow_rows[None].expand(b, o)], dim=1)
             ok = torch.cat([ok, ok_overflow[None].expand(b, o)], dim=1)
     with annotate("fpv.ann.finish"):
@@ -262,33 +244,24 @@ def _ivfpq_search_kernel(q, centroids, codebooks, codes, norms, row_table,
                              rerank_dtype)
 
 
-class IVFPQIndex:
+class IVFPQIndex(InvertedFile):
     """Inverted-file product-quantized index over a collection's store; its
     tensors live on the collection's device."""
 
-    # the same rule as IVF: a quarter of the card's free memory on CUDA
-    _mem_budget = IVFIndex._mem_budget
+    _QM_BUDGET = 2 << 30
+    _QM_PAD = 1
+    # the grouped regroup's (b * nprobe, cmax) temporaries
+    _REGROUP_BYTES = 24
 
     def __init__(self, centroids, codebooks, codes, norms, row_table,
                  overflow_vecs, overflow_rows, collection, nprobe: int,
                  rerank: int = 8):
-        self.device = collection._store.device
-        self.centroids = centroids          # (nlist, D) f32
+        # rerank: the candidate factor, c = rerank * k
+        super().__init__(centroids, row_table, overflow_vecs, overflow_rows,
+                         collection, nprobe, rerank)
         self.codebooks = codebooks          # (M, K, ds) f32
         self.codes = codes                  # (nlist, cmax, M) uint8
         self.norms = norms                  # (nlist, cmax) f32
-        self.row_table = row_table          # (nlist, cmax) int32, -1 = pad
-        self.overflow_vecs = overflow_vecs  # (O, D) f32
-        self.overflow_rows = overflow_rows  # (O,) int32, -1 = padding
-        self._collection = collection
-        self.nprobe = nprobe
-        self.rerank = rerank                # candidate factor c = rerank*k
-        self.stale = False
-        self._built_count = collection._store.count
-        self._built_n_valid = collection._store.n_valid
-        self.last_dropped = 0
-        self.last_qcap = None
-        self._free_bytes = None   # device memory free at the first search
 
     # ------------------------------------------------------------------
     @classmethod
@@ -375,7 +348,6 @@ class IVFPQIndex:
         idx._cell_counts = counts
         return idx
 
-    # ------------------------------------------------------------------
     def _codes_t_cached(self) -> torch.Tensor:
         """(nlist, M, cmax) transposed codes for the grouped kernel (code
         bytes contiguous along the cell's rows), built at the first grouped
@@ -386,45 +358,35 @@ class IVFPQIndex:
             self._codes_t_memo = memo
         return memo[1]
 
-    def _search_grouped(self, q: np.ndarray, k: int, okc, oko, nprobe: int,
-                        rerank: int, qcap: Optional[int] = None
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-        """Cell-major batched dispatch (``_grouped_pq_candidates``)."""
+    def _k_max(self, nprobe: int) -> int:
+        return nprobe * self.row_table.shape[1] + int(
+            self.overflow_rows.shape[0])
+
+    def _query_bytes(self, nprobe: int) -> int:
+        # per-query transients: the gathered codes, their int64 table index
+        # and the gathered f32 entries (13 bytes a code)
+        return nprobe * self.row_table.shape[1] * self.codes.shape[2] * 13
+
+    def _kernel(self, grouped: bool, k: int, okc, oko, nprobe: int,
+                rerank: int):
+        """Grouped: cell-major (``_grouped_pq_candidates``); else each
+        query gathers its probed cells' codes."""
         cfg = self._collection.config
-        nlist, cmax = self.row_table.shape
-        codes_t = self._codes_t_cached()
-        # sub-batches keep the (U <= nlist, qcap, cmax) f32 kernel output
-        # and the (b * nprobe, cmax) regroup temporaries under the budget
-        budget = self._mem_budget(2 << 30)
-        qcap_hbm = max(8, int(budget // max(nlist * cmax * 4, 1)))
-        sub_score = max(8, (qcap_hbm * nlist) // (4 * nprobe) // 8 * 8)
-        sub_pairs = max(8, int(budget // max(nprobe * cmax * 24, 1))
-                        // 8 * 8)
-        sub_max = min(sub_score, sub_pairs)
-        ncand = nprobe * cmax + int(self.overflow_rows.shape[0])
-        vectors = self._collection._store.vectors if rerank > 0 else None
-        outs_d, outs_r = [], []
-        self.last_dropped = 0
-        for s in range(0, q.shape[0], sub_max):
-            subq = q[s: s + sub_max]
-            real = subq.shape[0]
-            # zero rows pad to a multiple of 8, as in the JAX package: they
-            # take slots too, so the padding is part of the result
-            sub_qcap = (grouped_qcap(real + (-real) % 8, nprobe, nlist, cmax)
-                        if qcap is None else min(qcap, qcap_hbm))
-            dd, rr, dropped = _grouped_ivfpq_search_kernel(
-                _upload(subq, 8, self.device), self.centroids,
-                self.codebooks, codes_t, self.norms, self.row_table,
-                self.overflow_vecs, self.overflow_rows, okc, oko, vectors,
-                metric=cfg.metric, k=min(k, ncand), nprobe=nprobe,
-                qcap=int(sub_qcap), rerank=rerank,
+        vectors = self._collection._store.vectors
+        if grouped:
+            codes_t = self._codes_t_cached()
+            return lambda q, qcap: _grouped_ivfpq_search_kernel(
+                q, self.centroids, self.codebooks, codes_t, self.norms,
+                self.row_table, self.overflow_vecs, self.overflow_rows, okc,
+                oko, vectors if rerank > 0 else None, metric=cfg.metric, k=k,
+                nprobe=nprobe, qcap=qcap, rerank=rerank,
                 compute_dtype=cfg.compute_dtype)
-            self.last_dropped += int(dropped)
-            self.last_qcap = int(sub_qcap)
-            d_, r_ = _to_numpy(dd, rr, real)
-            outs_d.append(d_)
-            outs_r.append(r_)
-        return np.concatenate(outs_d), np.concatenate(outs_r)
+        c = int(min(max(k, k * rerank), self._k_max(nprobe)))
+        return lambda q: _ivfpq_search_kernel(
+            q, self.centroids, self.codebooks, self.codes, self.norms,
+            self.row_table, self.overflow_vecs, self.overflow_rows, okc, oko,
+            vectors, metric=cfg.metric, k=k, c=c, nprobe=nprobe,
+            rerank_dtype=cfg.compute_dtype, do_rerank=rerank > 0)
 
     def search(self, queries: np.ndarray, k: int,
                mask: Optional[np.ndarray] = None, overfetch: int = 1,
@@ -433,76 +395,15 @@ class IVFPQIndex:
                grouped: Optional[bool] = None,
                qcap: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
-        with annotate("fpv.ann.search"):
-            return self._search(queries, k, mask, overfetch, nprobe, rerank,
-                                max_query_batch, grouped, qcap)
-
-    def _search(self, queries, k, mask, overfetch, nprobe, rerank,
-                max_query_batch, grouped, qcap
-                ) -> Tuple[np.ndarray, np.ndarray]:
-        if self.stale:
-            self.__dict__.update(self.rebuilt().__dict__)
-        q = np.ascontiguousarray(queries, dtype=np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        nlist, cmax = self.row_table.shape
-        nprobe = int(min(nprobe or self.nprobe, nlist))
-        if mask is not None and overfetch > 1:
-            nprobe = int(min(nlist, nprobe * overfetch))
-        okc, oko = ok_slot_masks(
-            self, np.ascontiguousarray(mask, dtype=bool) if mask is not None
-            and not isinstance(mask, np.ndarray) else mask)
-        rr = int(self.rerank if rerank is None else rerank)
-        # large batches go cell-major: once b * nprobe rivals nlist, reading
-        # each probed cell once beats per-query code gathers
-        if grouped is None:
-            grouped = q.shape[0] * nprobe >= nlist
-        if grouped:
-            return self._search_grouped(q, k, okc, oko, nprobe, rerank=rr,
-                                        qcap=qcap)
-        cfg = self._collection.config
-        m = self.codes.shape[2]
-        ncand = nprobe * cmax + int(self.overflow_rows.shape[0])
-        c = int(min(max(k, k * rr), ncand))
-        # per-query transients: the gathered codes, their int64 table index
-        # and the gathered f32 entries (13 bytes a code)
-        per_q = max(nprobe * cmax * m * 13, 1)
-        safe_b = max(8, int(self._mem_budget(2 << 30) // per_q) // 8 * 8)
-        max_query_batch = int(min(max_query_batch, safe_b))
-        store = self._collection._store
-        outs_d, outs_r = [], []
-        for s in range(0, q.shape[0], max_query_batch):
-            sub = q[s: s + max_query_batch]
-            d, r = _ivfpq_search_kernel(
-                _upload(sub, 1, self.device), self.centroids,
-                self.codebooks, self.codes, self.norms, self.row_table,
-                self.overflow_vecs, self.overflow_rows, okc, oko,
-                store.vectors, metric=cfg.metric, k=min(k, ncand), c=c,
-                nprobe=nprobe, rerank_dtype=cfg.compute_dtype,
-                do_rerank=rr > 0)
-            d_, r_ = _to_numpy(d, r, sub.shape[0])
-            outs_d.append(d_)
-            outs_r.append(r_)
-        return np.concatenate(outs_d), np.concatenate(outs_r)
+        return self._search(queries, k, mask, overfetch, nprobe, rerank,
+                            max_query_batch, grouped, qcap)
 
     # ------------------------------------------------------------------
-    def mark_stale(self) -> None:
-        self.stale = True
-
-    def rebuilt(self) -> "IVFPQIndex":
-        """A fresh index built with this index's recipe (its build
-        parameters, with the runtime-tuned ``nprobe`` / ``rerank``) over the
-        collection's current rows; used by the stale path and by the
-        collection's background rebuild."""
-        kw = dict(getattr(self, "_build_kwargs", {}))
-        kw.setdefault("nlist", self.centroids.shape[0])
+    def _rebuild(self, kw: dict) -> "IVFPQIndex":
         kw.setdefault("m", self.codes.shape[2])
         kw.setdefault("pq_k", self.codebooks.shape[1])
-        kw["nprobe"] = self.nprobe
         kw["rerank"] = self.rerank
-        new = IVFPQIndex.build(self._collection, **kw)
-        new._build_kwargs = dict(getattr(self, "_build_kwargs", {}))
-        return new
+        return IVFPQIndex.build(self._collection, **kw)
 
     def stats(self) -> dict:
         counts = getattr(self, "_cell_counts", None)
@@ -570,15 +471,7 @@ class IVFPQIndex:
                   tensor("ann_row_table").to(torch.int32), ovecs, orows,
                   collection, int(meta["nprobe"]),
                   rerank=int(meta.get("rerank", 8)))
-        idx._built_count = int(meta["built_count"])
-        # growth past built_count is served by the collection's tail merge;
-        # only an impossible shrink (container mismatch) forces a rebuild
-        idx.stale = idx._built_count > store.count
-        return idx
-
-    def _recall(self, rows, exact_r, k: int) -> float:
-        return float(np.mean([len(set(a.tolist()) & set(e.tolist())) / k
-                              for a, e in zip(rows, exact_r)]))
+        return idx._loaded(meta)
 
     def tune(self, queries: np.ndarray, target_recall: float = 0.95,
              k: int = 10, max_nprobe: Optional[int] = None,
@@ -606,22 +499,3 @@ class IVFPQIndex:
                 npb = min(limit, npb * 2)
             else:
                 rr = min(max_rerank, rr * 2)
-
-    def tune_nprobe(self, queries: np.ndarray, target_recall: float = 0.95,
-                    k: int = 10, max_nprobe: Optional[int] = None) -> int:
-        """The smallest nprobe (from nprobe/4, doubling) whose recall@k
-        clears ``target_recall``; sets and returns it."""
-        store = self._collection._store
-        cfg = self._collection.config
-        _, exact_r = store.search(queries, k, cfg.metric,
-                                  compute_dtype=cfg.compute_dtype)
-        limit = max_nprobe or self.centroids.shape[0]
-        nprobe = max(1, self.nprobe // 4)
-        while nprobe <= limit:
-            _, r = self.search(queries, k, nprobe=nprobe)
-            if self._recall(r, exact_r, k) >= target_recall:
-                self.nprobe = nprobe
-                return nprobe
-            nprobe *= 2
-        self.nprobe = limit
-        return limit

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ann import KINDS as ANN_KINDS
 from ..kernels import topk as topk_mod
 from ..persist.format import load_container, save_container
 from ..profiling import annotate
@@ -32,10 +33,6 @@ from .store import DeviceVectorStore
 from .types import CollectionConfig, DistanceMetric, SearchResult, as_f32_matrix
 
 STORE_FILE = "collection.fpvt"
-
-# the recall knobs of each ANN kind: an explicit one turns auto-tune off
-_ANN_KNOBS = {"ivf": ("nprobe",), "ivfpq": ("nprobe", "rerank"),
-              "graph": ("beam", "iters")}
 
 # result assemblies by path: "clean" where every slot was valid and nothing
 # was touched after the gather, "patched" where invalid slots were blanked
@@ -751,8 +748,9 @@ class Collection:
         graph (the JAX package's behaviour; those self-queries find
         themselves, so pass held-out queries to the index's tuner where
         recall matters).  ``tune=False`` skips it."""
-        if kind not in _ANN_KNOBS:
+        if kind not in ANN_KINDS:
             raise ValueError(f"unknown ANN kind {kind!r}")
+        index_cls, knobs = ANN_KINDS[kind]
         if kind == "graph":
             import warnings
             warnings.warn(
@@ -760,12 +758,6 @@ class Collection:
                 "runs `iters` dependent rounds of gathers and sorts, and "
                 "measured slower than kind='ivf' on an H100 (PERF.md); "
                 "prefer kind='ivf'", stacklevel=2)
-        if kind == "ivf":
-            from ..ann.ivf import IVFIndex as index_cls
-        elif kind == "ivfpq":
-            from ..ann.ivfpq import IVFPQIndex as index_cls
-        else:
-            from ..ann.graph_ann import GraphANN as index_cls
         with self._lock:
             self._ann = index_cls.build(self, **kwargs)
             # drift-triggered rebuilds reuse the caller's build parameters
@@ -774,8 +766,7 @@ class Collection:
             # an explicit knob is the caller's decision: auto-tune never
             # overrides it; only tune=True re-tunes past it
             if tune is None:
-                explicit = any(kwargs.get(kb) is not None
-                               for kb in _ANN_KNOBS[kind])
+                explicit = any(kwargs.get(kb) is not None for kb in knobs)
                 tune = (not explicit
                         and self._store.n_valid >= self._AUTOTUNE_MIN_ROWS)
             if tune:

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ann.ivf_grouped import _metric_scores, _qstats
 from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, corpus_stats, mm_f32, smallest_k
 from ..kernels.ivf_kernels import bmm_f32
@@ -85,21 +86,6 @@ def _merge_over_data_axis(coll, g, vals, gidx, k, *, sqrt_l2=False):
         out_vals = torch.where(out_vals >= float(MASKED), out_vals,
                                torch.sqrt(torch.clamp(out_vals, min=0.0)))
     return out_vals, rows
-
-
-def _metric_scores(metric, cross, vsq, qsq, qinv, *, sqrt_l2: bool):
-    """Scores from a cross term and squared norms; qsq / qinv (B, 1)."""
-    if metric == DistanceMetric.COSINE:
-        return 1.0 - cross * qinv * torch.rsqrt(torch.clamp(vsq, min=1e-30))
-    if metric == DistanceMetric.L2:
-        d2 = torch.clamp(qsq + vsq - 2.0 * cross, min=0.0)
-        return torch.sqrt(d2) if sqrt_l2 else d2
-    return -cross
-
-
-def _qstats(qf):
-    qsq = (qf * qf).sum(dim=1, keepdim=True)
-    return qsq, 1.0 / torch.clamp(torch.sqrt(qsq), min=1e-30)
 
 
 # rows x candidates x dims of one re-rank gather (bounds its transient)

@@ -46,6 +46,7 @@ except ImportError:  # pragma: no cover
 
 from pydantic import ValidationError
 
+from ..ann import KINDS as ANN_KINDS
 from ..core.filters import Filter, filter_from_tree
 from ..core.vectordb import VectorDB
 from ..embeddings import get_embedder
@@ -488,7 +489,7 @@ def create_app(db_path: str = "./vectordb_data", *, full: bool = True,
         req = _parse(S.BuildIndexRequest, await _body(request))
         loop = asyncio.get_running_loop()
         try:
-            if req.kind in ("ivf", "ivfpq", "graph"):
+            if req.kind in ANN_KINDS:
                 await loop.run_in_executor(
                     None, lambda: c.build_ann(kind=req.kind, **req.params))
                 info = c._ann.stats()

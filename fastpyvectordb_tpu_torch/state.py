@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .ann import KINDS as ANN_KINDS
 from .core.collection import Collection
 from .core.store import DeviceVectorStore
 from .core.types import CollectionConfig
@@ -33,7 +34,7 @@ def restore_into(col: Collection, meta: dict, sections: dict) -> None:
     int4 ``vmin``/``scale``, binary thresholds, pq codebooks) come across
     through ``QuantizedScan.from_sections``."""
     ann_meta = meta.get("ann")
-    if ann_meta and ann_meta.get("kind") not in ("ivf", "ivfpq", "graph"):
+    if ann_meta and ann_meta.get("kind") not in ANN_KINDS:
         # dropping the section would change what search() serves
         raise ValueError(
             f"unknown ANN index kind {ann_meta.get('kind')!r} in the file")
@@ -52,12 +53,7 @@ def restore_into(col: Collection, meta: dict, sections: dict) -> None:
     col._serving_mode = meta.get("serving_mode")
     col._ann = None
     if ann_meta:
-        if ann_meta["kind"] == "ivf":
-            from .ann.ivf import IVFIndex as index_cls
-        elif ann_meta["kind"] == "ivfpq":
-            from .ann.ivfpq import IVFPQIndex as index_cls
-        else:
-            from .ann.graph_ann import GraphANN as index_cls
+        index_cls, _ = ANN_KINDS[ann_meta["kind"]]
         col._ann = index_cls.from_sections(
             col, {k: v for k, v in sections.items() if k.startswith("ann_")},
             ann_meta)

@@ -499,6 +499,101 @@ def test_own_build_recall_and_knobs():
 
 
 # ---------------------------------------------------------------------------
+# (f) the search path IVF and IVF-PQ share (ann/ivf.py:InvertedFile)
+# ---------------------------------------------------------------------------
+
+KINDS = {"ivf": {}, "ivfpq": {"m": 8, "pq_k": 16, "pq_iters": 4}}
+
+
+def _own(kind, metric="l2"):
+    """A port-built index over the IVF corpus with an overflow block, and
+    64 queries: 8 grouped sub-batches under a budget that fits 8 slots."""
+    v, q = _corpus(nq=64)
+    col = T.Collection(T.CollectionConfig(name="d", dimensions=D,
+                                          metric=metric), device="cpu")
+    col.insert_batch(v, [f"v{i}" for i in range(N)])
+    col.build_ann(kind, nlist=16, nprobe=4, iters=4, max_cell_factor=1.0,
+                  spill_choices=1, tune=False, **KINDS[kind])
+    assert int((col._ann.overflow_rows >= 0).sum()) > 0
+    return col, q
+
+
+def _split(monkeypatch, ann):
+    # qcap_hbm = 8 slots, so a grouped sub-batch of 8 * nlist / (4 * nprobe)
+    # = 8 queries
+    monkeypatch.setattr(ann, "_mem_budget", lambda default: 1 << 12)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_grouped_sub_batches_match_one_dispatch(monkeypatch, kind, metric):
+    col, q = _own(kind, metric)
+    ann = col._ann
+    hot = np.repeat(q[:4], 16, axis=0)          # cells past qcap 4
+    one = ann.search(q, 10, grouped=True)
+    assert len(ann._dropped) == 1 and ann.last_dropped == 0
+    slices = [ann.search(hot[s:s + 8], 10, grouped=True, qcap=4)
+              + (ann.last_dropped,) for s in range(0, 64, 8)]
+    assert sum(x[2] for x in slices) > 0
+    _split(monkeypatch, ann)
+    d, r = ann.search(q, 10, grouped=True)
+    assert len(ann._dropped) == 8 and ann.last_dropped == 0
+    np.testing.assert_array_equal(d, one[0])
+    np.testing.assert_array_equal(r, one[1])
+    # a saturated batch: each sub-batch sheds what it sheds alone, and
+    # last_dropped is their sum
+    d, r = ann.search(hot, 10, grouped=True, qcap=4)
+    assert len(ann._dropped) == 8 and ann.last_qcap == 4
+    np.testing.assert_array_equal(d, np.concatenate([x[0] for x in slices]))
+    np.testing.assert_array_equal(r, np.concatenate([x[1] for x in slices]))
+    assert ann.last_dropped == sum(x[2] for x in slices)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_dropped_counts_stay_on_the_card_until_read(monkeypatch, kind):
+    from torch.profiler import ProfilerActivity, profile
+    col, q = _own(kind)
+    ann = col._ann
+    _split(monkeypatch, ann)
+    hot = np.repeat(q[:4], 16, axis=0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ann.search(hot, 10, grouped=True, qcap=4)
+    ops = {e.key for e in prof.key_averages()}
+    assert "aten::item" not in ops and "aten::_local_scalar_dense" not in ops
+    assert len(ann._dropped) == 8
+    assert all(isinstance(x, torch.Tensor) and x.dim() == 0
+               for x in ann._dropped)
+    assert ann.last_dropped == sum(int(x) for x in ann._dropped) > 0
+    # a query-major search leaves the last grouped search's counts alone
+    ann.search(q, 10, grouped=False)
+    assert len(ann._dropped) == 8
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_tune_nprobe_sets_the_smallest_that_clears(kind):
+    col, q = _own(kind, "cosine")
+    ann = col._ann
+    _, _, exact = col.search_arrays(q, k=10, exact=True)
+
+    def recall(nprobe):
+        _, rows = ann.search(q, 10, nprobe=nprobe)
+        return np.mean([len(set(a.tolist()) & set(e.tolist())) / 10
+                        for a, e in zip(rows, exact)])
+
+    ladder = [1, 2, 4, 8, 16]                   # nprobe 4 // 4, doubling
+    got = [recall(n) for n in ladder]
+    target = got[2]
+    want = next(n for n, r in zip(ladder, got) if r >= target)
+    assert want > 1
+    assert ann.tune_nprobe(q, target_recall=target) == want == ann.nprobe
+    ann.nprobe = 4                              # the first rung clears
+    assert ann.tune_nprobe(q, target_recall=got[0]) == 1 == ann.nprobe
+    # no rung clears: the limit
+    assert ann.tune_nprobe(q, target_recall=1.01, max_nprobe=8) == 8
+    assert ann.nprobe == 8
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
