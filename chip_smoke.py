@@ -1318,14 +1318,16 @@ def ivfpq_kernel_case(ann, queries, nprobe: int):
     _, route = _pq_route(qf, ann.centroids, ann._collection.config.metric)
     _, args = pq_cell_score_args(
         qf, probe_cells(-route, nprobe), ann._codes_t_cached(),
-        ann.codebooks, qcap=grouped_qcap(qf.shape[0], nprobe, nlist, cmax))
+        ann.codebooks, ann._extents_cached(),
+        qcap=grouped_qcap(qf.shape[0], nprobe, nlist, cmax))
     return args
 
 
 def pq_ragged_case(gen, nlist, u, n_uniq, qcap, cmax, m, kk, b, loads=None):
     """Synthetic B7 operands at a ragged shape, with empty slots (each
-    compact row's live slots a prefix, ``loads`` of them or a random count)
-    and a padding tail (compact slots past n_uniq alias cell 0)."""
+    compact row's live slots a prefix, ``loads`` of them or a random count),
+    a padding tail (compact slots past n_uniq alias cell 0) and cell
+    extents drawn from 0..cmax (cell 0 full)."""
     import torch
     rnd = dict(generator=gen, device="cuda")
     ids = torch.randperm(nlist, **rnd)[:u].int()
@@ -1340,19 +1342,35 @@ def pq_ragged_case(gen, nlist, u, n_uniq, qcap, cmax, m, kk, b, loads=None):
                         torch.randint(0, b, (u, qcap), **rnd), -1).int()
     codes_t = torch.randint(0, kk, (nlist, m, cmax), dtype=torch.uint8,
                             **rnd)
-    return cell_ids, lut, qslot, codes_t
+    extent = torch.randint(0, cmax + 1, (nlist,), **rnd).int()
+    extent[0] = cmax
+    return cell_ids, lut, qslot, codes_t, extent
+
+
+def pq_live_rows(args):
+    """(n_uniq, qcap, cmax) bool: the (slot, cell row) entries B7 writes,
+    live slots of the compact cells by the rows below each cell's
+    extent."""
+    import torch
+    cell_ids, _, qslot, codes_t, extent = args
+    n = int(cell_ids[0])
+    ext = extent[cell_ids[1:1 + n].long()]
+    below = (torch.arange(codes_t.shape[2], device=ext.device)[None, :]
+             < ext[:, None])
+    return (qslot[:n] >= 0)[:, :, None] & below[:, None, :]
 
 
 def check_pq_kernel(args):
     """B7 against its plain version on the live slots of the compact cells
-    (the kernel leaves the rest unwritten)."""
+    and the rows below each cell's extent (the kernel leaves the rest
+    unwritten)."""
     import torch
     from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
     got = ik.grouped_cell_scores_pq(*args)
     want = ik.grouped_cell_scores_pq_plain(*args)
     torch.cuda.synchronize()
     n = int(args[0][0])
-    live = args[2][:n] >= 0
+    live = pq_live_rows(args)
     g, w = got[:n][live], want[:n][live]
     if not torch.isfinite(g).all():
         raise AssertionError("grouped_cell_scores_pq: non-finite output")
@@ -1366,20 +1384,21 @@ def check_pq_kernel(args):
 
 def pq_bound(args) -> dict:
     """B7 at the path's operands: the ADC tables, the slot table and the
-    probed cells' codes in, one f32 per filled slot and cell row out; one
-    f32 add per (filled slot, cell row, subspace)."""
+    probed cells' live codes in, one f32 per filled slot and live cell row
+    out; one f32 add per (filled slot, live cell row, subspace)."""
     import torch
-    cell_ids, lut, qslot, codes_t = args
+    cell_ids, lut, qslot, codes_t, extent = args
     n = int(cell_ids[0])
-    _, m, cmax = codes_t.shape
-    filled = int((qslot[:n] >= 0).sum())
+    m = codes_t.shape[1]
+    rows = int(extent[cell_ids[1:1 + n].long()].sum())
+    pairs = float(pq_live_rows(args).sum())
     nbytes = (4 * cell_ids.numel() + 2 * lut.numel() + 4 * n * qslot.shape[1]
-              + n * m * cmax + 4 * filled * cmax)
-    out = bound(nbytes, float(filled) * cmax * m, "f32")
+              + rows * m + 4 * pairs)
+    out = bound(nbytes, pairs * m, "f32")
     # beside the bound: the same lookups out of shared memory with no bank
     # conflict, one 4-byte bank word a lane a clock on every SM
     props = torch.cuda.get_device_properties(0)
-    out["lookup_ms"] = (float(filled) * cmax * m / (
+    out["lookup_ms"] = (pairs * m / (
         props.multi_processor_count * 32 * sm_clock_hz()) * 1e3)
     return out
 
@@ -1484,6 +1503,11 @@ def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
             f"{err:.3g} (tol {tol:.3g})")
     args = ivfpq_kernel_case(ann, queries, ann.nprobe)
     ms = cuda_ms(lambda: ik.grouped_cell_scores_pq(*args))
+    made, over_cmax = ik.last_pq_tiles()
+    skipped = 1.0 - made / max(over_cmax, 1)
+    log(f"[kernels] grouped_cell_scores_pq main path nprobe {ann.nprobe}: "
+        f"{made} row tiles of {over_cmax} over all of cmax "
+        f"({100 * skipped:.1f}% skipped past the cells' extents)")
     plain_ms = cuda_ms(lambda: ik.grouped_cell_scores_pq_plain(*args),
                        reps=3)
     bnd = pq_bound(args)
@@ -1494,6 +1518,7 @@ def phase_ivfpq(cc, queries, tune_queries, timing_batches, truth, results):
     return ({"grouped_cell_scores_pq": {
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "library_ms": None, "design": ik.PQ_DESIGN,
+        "row_tiles": made, "row_tiles_over_cmax": over_cmax,
         "library": "none: no PyTorch call looks up a table through a slot "
                    "table", **bnd}}, launches)
 

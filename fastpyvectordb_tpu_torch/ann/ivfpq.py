@@ -111,11 +111,24 @@ def _pq_route(qf, centroids, metric):
     return qc, -(csq[None, :] - 2.0 * qc)
 
 
-def pq_cell_score_args(qf, probe, codes_t, codebooks, *, qcap: int):
+def cell_extents(row_table: torch.Tensor) -> torch.Tensor:
+    """(nlist,) int32: each cell's occupied extent, the index of its last
+    live slot (``row_table >= 0``) + 1; 0 for an empty cell, cmax for a
+    full one.  A build fills each cell as a prefix and nothing inserts into
+    a cell after it, so this is the cell's row count; tombstoned rows stay
+    inside it.  ``grouped_cell_scores_pq`` scores a cell's rows below it
+    alone."""
+    pos = torch.arange(1, row_table.shape[1] + 1, dtype=torch.int32,
+                       device=row_table.device)
+    return torch.where(row_table >= 0, pos, 0).amax(dim=1).to(torch.int32)
+
+
+def pq_cell_score_args(qf, probe, codes_t, codebooks, extents, *,
+                       qcap: int):
     """The score stage of one grouped batch: ``(pairs, args)`` with the
     ``invert_pairs`` tables and the ``grouped_cell_scores_pq`` operands
     (compact cell list, per-query bf16 ADC tables (B, M*K), compact slot
-    table, transposed codes)."""
+    table, transposed codes, cell extents)."""
     b = qf.shape[0]
     nlist, m, _ = codes_t.shape
     with annotate("fpv.ann.invert"):
@@ -124,23 +137,27 @@ def pq_cell_score_args(qf, probe, codes_t, codebooks, *, qcap: int):
         lut = _query_luts(qf, codebooks).reshape(b, m * codebooks.shape[1])
         lut = lut.bfloat16()
     return pairs, (pairs["cell_list"], lut, pairs["qslot_c"].to(torch.int32),
-                   codes_t)
+                   codes_t, extents)
 
 
 def _grouped_pq_candidates(qf, qc, probe, codes_t, codebooks, norms,
-                           row_table, ok_cells, *, metric, qcap: int):
+                           row_table, ok_cells, extents, *, metric,
+                           qcap: int):
     """Cell-major ADC scoring of one grouped batch: every probed cell's
     codes are scored once for all the queries probing it by the
     ``grouped_cell_scores_pq`` kernel, reading each query's bf16 ADC table
-    through the slot table; the q.centroid term, reconstruction norms and
-    validity are applied at the regroup over per-pair rows.  Returns
+    through the slot table, over each cell's rows below its extent
+    (``cell_extents(row_table)``); the q.centroid term, reconstruction
+    norms and validity are applied at the regroup over per-pair rows, where
+    ``ok_cells`` (False on every padding slot) masks the rows the kernel
+    left unwritten.  Returns
     (cand_vals (B, nprobe*cmax) f32 lower = better — L2 in the SQUARED
     domain — cand_rows, dropped)."""
     b = qf.shape[0]
     cmax = codes_t.shape[2]
     nprobe = probe.shape[1]
     pairs, args = pq_cell_score_args(qf, probe, codes_t, codebooks,
-                                     qcap=qcap)
+                                     extents, qcap=qcap)
     with annotate("fpv.ann.score"):
         s = grouped_cell_scores_pq(*args)
     with annotate("fpv.ann.regroup"):
@@ -165,8 +182,8 @@ def _grouped_pq_candidates(qf, qc, probe, codes_t, codebooks, norms,
 
 
 def _grouped_ivfpq_search_kernel(q, centroids, codebooks, codes_t, norms,
-                                 row_table, overflow_vecs, overflow_rows,
-                                 ok_cells, ok_overflow,
+                                 row_table, extents, overflow_vecs,
+                                 overflow_rows, ok_cells, ok_overflow,
                                  vectors: Optional[torch.Tensor], *,
                                  metric: DistanceMetric, k: int, nprobe: int,
                                  qcap: int, rerank: int,
@@ -181,7 +198,7 @@ def _grouped_ivfpq_search_kernel(q, centroids, codebooks, codes_t, norms,
         probe = probe_cells(-route, nprobe)
     cand_vals, cand_rows, dropped = _grouped_pq_candidates(
         qf, qc, probe, codes_t, codebooks, norms, row_table, ok_cells,
-        metric=metric, qcap=qcap)
+        extents, metric=metric, qcap=qcap)
     if overflow_rows.shape[0] > 0:
         with annotate("fpv.ann.overflow"):
             os_, orows = overflow_candidates(
@@ -358,6 +375,16 @@ class IVFPQIndex(InvertedFile):
             self._codes_t_memo = memo
         return memo[1]
 
+    def _extents_cached(self) -> torch.Tensor:
+        """``cell_extents(self.row_table)``, on the index's device, made at
+        the first grouped search and kept while ``self.row_table`` is the
+        same tensor (the row table is never written in place)."""
+        memo = getattr(self, "_extents_memo", None)
+        if memo is None or memo[0] is not self.row_table:
+            memo = (self.row_table, cell_extents(self.row_table))
+            self._extents_memo = memo
+        return memo[1]
+
     def _k_max(self, nprobe: int) -> int:
         return nprobe * self.row_table.shape[1] + int(
             self.overflow_rows.shape[0])
@@ -375,10 +402,12 @@ class IVFPQIndex(InvertedFile):
         vectors = self._collection._store.vectors
         if grouped:
             codes_t = self._codes_t_cached()
+            extents = self._extents_cached()
             return lambda q, qcap: _grouped_ivfpq_search_kernel(
                 q, self.centroids, self.codebooks, codes_t, self.norms,
-                self.row_table, self.overflow_vecs, self.overflow_rows, okc,
-                oko, vectors if rerank > 0 else None, metric=cfg.metric, k=k,
+                self.row_table, extents, self.overflow_vecs,
+                self.overflow_rows, okc, oko,
+                vectors if rerank > 0 else None, metric=cfg.metric, k=k,
                 nprobe=nprobe, qcap=qcap, rerank=rerank,
                 compute_dtype=cfg.compute_dtype)
         c = int(min(max(k, k * rerank), self._k_max(nprobe)))

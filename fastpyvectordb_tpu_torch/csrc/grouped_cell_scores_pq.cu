@@ -7,7 +7,7 @@
 //
 // What it computes, for each compact slot u < cell_ids[0] (cell =
 // cell_ids[1 + u]), each query slot s with q = qslot[u, s] >= 0 and each cell
-// row c < cmax:
+// row c < extent[cell] (the cell's occupied extent, at most cmax):
 //   out[u, s, c] = sum_m float(lut[q, m*K + codes_t[cell, m, c]])
 // summed over m in order, in f32.  lut is the per-query (B, M*K) bf16 table
 // and qslot the (U, qcap) slot table of ann/ivf_grouped.py:invert_pairs; the
@@ -15,8 +15,10 @@
 // forms the same sum as a bf16 product with a one-hot expansion of the codes
 // in VMEM.  Here the sum is a shared-memory table lookup: Hopper has no use
 // for the one-hot, and the gathered copy (several GB a batch at B=1024,
-// nprobe 32, M*K = 24,576) is never built.  Rows u >= cell_ids[0] and empty
-// slots (qslot -1) are left unwritten; the caller never reads them.
+// nprobe 32, M*K = 24,576) is never built.  Rows u >= cell_ids[0], empty
+// slots (qslot -1) and cell rows c >= extent[cell] are left unwritten; the
+// caller never reads them (its regroup masks every row past a cell's last
+// live one).
 //
 // The lookup is conflict-free by construction: a lane is a query slot.  A
 // warp takes cell rows four at a time (one 32-bit broadcast read of their
@@ -32,7 +34,16 @@
 // skipped, not mis-scored), and cuts it into tiles of 32 slots plus a tail
 // sized to the load: a tile of W = 16 or 8 slots gives the warp's other
 // lanes to 2 or 4 row groups, so a tail of 5 slots costs a quarter of a
-// full tile.  The tiles of one cell lie next to each other in the list.
+// full tile.  It cuts the cell's rows into ceil(extent[cell] / CT) row
+// tiles (CT = 16 x the rows a consumer warp sums), not ceil(cmax / CT): an
+// IVF-PQ index fills each cell as a prefix and never inserts after the
+// build, so at cell factor 3.0 most of cmax is padding (10M rows over
+// 6,324 cells of 4,864: ~1,580 live rows a cell, 2-3 row tiles of 768
+// against 7); an empty cell emits none.  A tile carries its live rows
+// (<= CT) in its int4: consumer warps whose first row is at or past them
+// skip their lookups and stores, producers zero-fill the code bytes past
+// them.  A full cell runs all of cmax's tiles.  The tiles of one cell lie
+// next to each other in the list.
 //
 // Main kernel: one persistent 768-thread block an SM, with the card's 227 KB
 // of shared memory opted in to, draws tiles from the list with an atomic
@@ -51,9 +62,12 @@
 // not a multiple of 4 (or a base unaligned) the producers copy with plain
 // loads and stores instead of cp.async.
 //
-// What bounds it: at the main path's shape (1M rows, nlist 2000, cmax 768,
-// M 96, K 256, B=1024 at nprobe 64: 65,536 live (query, cell) pairs) it is
-// 4.8 G table lookups and adds out of shared memory, one bank word a lane a
+// What bounds it: the row tiles it runs, each of which stages its slots'
+// tables and looks up every row a live warp holds.  At the main path's
+// shape (1M rows, nlist 2000, cmax 768, M 96, K 256, B=1024 at nprobe 64:
+// 65,536 live (query, cell) pairs) it is at most 4.8 G table lookups and
+// adds out of shared memory (fewer where a cell's extent leaves a warp
+// idle), one bank word a lane a
 // clock at best (~0.6 ms), plus 3.2 GB of table rows staged (the 50 MB of
 // tables ~64 times over, mostly from L2) and 0.2 GB of output.  The lookup
 // loop is 5 instructions a lookup (code byte out of its word, scaled add,
@@ -117,11 +131,14 @@ constexpr int HDR = 16;                // a stage's header: the tile's id
 
 struct Params {
   const int* cell_ids;             // (U + 1,)
+  const int* extent;               // (nlist,) a cell's occupied rows
   const __nv_bfloat16* lut;        // (B, M * K)
   const int* qslot;                // (U, qcap), -1 = empty
   const unsigned char* codes_t;    // (nlist, M, cmax)
   float* out;                      // (U, qcap, cmax)
-  int* scratch;                    // [n tiles, next tile, -, -, tiles (int4)...]
+  int* counters;                   // [n tiles, next tile, n tiles over
+                                   //  cmax, -]
+  const int4* tiles;               // the work list (scratch)
   int qcap, cmax, M, K;
   int MC;                          // subspaces a chunk
   int stages, stage_bytes, pitch;  // the ring; bytes from slot to slot
@@ -151,10 +168,14 @@ __device__ __forceinline__ int tail_tiles(int r, int minw, int (&w)[MAX_TAIL],
 }
 
 // One warp a compact slot: the row's load, then its tiles appended to the
-// list (u, first slot, live | width << 8, first cell row).
+// list (u, first slot, live | width << 8 | cell rows << 16, first cell
+// row), ceil(extent / CT) row tiles of them; counters[2] counts the tiles
+// a plan over all of cmax would have made.
 __global__ void plan_kernel(const int* __restrict__ cell_ids,
-                            const int* __restrict__ qslot, int* scratch,
-                            int U, int qcap, int cmax, int CT, int minw) {
+                            const int* __restrict__ qslot,
+                            const int* __restrict__ extent, int* counters,
+                            int4* list, int U, int qcap, int cmax, int CT,
+                            int minw) {
   const int u = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (u >= U || u >= __ldg(cell_ids)) return;   // the padding tail
@@ -169,14 +190,18 @@ __global__ void plan_kernel(const int* __restrict__ cell_ids,
   int tw[MAX_TAIL], tn[MAX_TAIL];
   const int nfull = load / 32;
   const int ntail = tail_tiles(load % 32, minw, tw, tn);
-  const int ctiles = (cmax + CT - 1) / CT;
-  const int base = atomicAdd(scratch, (nfull + ntail) * ctiles);
-  int4* tiles = reinterpret_cast<int4*>(scratch + 4) + base;
+  const int ext =
+      min(max(__ldg(extent + __ldg(cell_ids + 1 + u)), 0), cmax);
+  const int ctiles = (ext + CT - 1) / CT;
+  atomicAdd(counters + 2, (nfull + ntail) * ((cmax + CT - 1) / CT));
+  if (ctiles == 0) return;
+  int4* tiles = list + atomicAdd(counters, (nfull + ntail) * ctiles);
   for (int c = 0; c < ctiles; ++c) {
+    const int rows = min(ext - c * CT, CT) << 16;
     for (int f = 0; f < nfull; ++f)
-      *tiles++ = make_int4(u, 32 * f, 32 | (32 << 8), c * CT);
+      *tiles++ = make_int4(u, 32 * f, 32 | (32 << 8) | rows, c * CT);
     for (int f = 0, s0 = 32 * nfull; f < ntail; s0 += tw[f], ++f)
-      *tiles++ = make_int4(u, s0, tn[f] | (tw[f] << 8), c * CT);
+      *tiles++ = make_int4(u, s0, tn[f] | (tw[f] << 8) | rows, c * CT);
   }
 }
 
@@ -236,7 +261,7 @@ __global__ void __launch_bounds__(THREADS, 1) pq_kernel(const Params p) {
   int* tilebox = reinterpret_cast<int*>(smem + 2 * MAX_STAGES * 8);
   uint8_t* ring = smem + HEAD;
   const int tid = threadIdx.x;
-  const int4* tiles = reinterpret_cast<const int4*>(p.scratch + 4);
+  const int4* tiles = p.tiles;
   const int tab_off = HDR, codes_off = HDR + SLOTS * p.pitch;
 
   if (tid == 0) {
@@ -254,14 +279,15 @@ __global__ void __launch_bounds__(THREADS, 1) pq_kernel(const Params p) {
     // ---- producers: warp pw stages slots pw, pw + PW, ... ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int pt = tid - CONSUMERS, pw = pt / 32, lane = pt % 32;
-    const int total = *reinterpret_cast<volatile int*>(p.scratch);
+    const int total = *reinterpret_cast<volatile int*>(p.counters);
     for (int turn = 0;; turn ^= 1) {
-      if (pt == 0) tilebox[turn] = atomicAdd(p.scratch + 1, 1);
+      if (pt == 0) tilebox[turn] = atomicAdd(p.counters + 1, 1);
       named_sync(1, PRODUCERS);
       const int ti = tilebox[turn];
       if (ti >= total) break;
       const int4 tl = __ldg(tiles + ti);
-      const int u = tl.x, s0 = tl.y, n = tl.z & 0xFF, c0 = tl.w;
+      const int u = tl.x, s0 = tl.y, n = tl.z & 0xFF, rows = tl.z >> 16;
+      const int c0 = tl.w;
       const int cell = __ldg(p.cell_ids + 1 + u);
       int qv = -1;   // lane l < SLOTS / PW: the query of slot pw + PW l
       if (lane < SLOTS / PW && pw + PW * lane < n)
@@ -298,14 +324,16 @@ __global__ void __launch_bounds__(THREADS, 1) pq_kernel(const Params p) {
               reinterpret_cast<__nv_bfloat16*>(dst)[i] = src[i];
           }
         }
-        // the chunk's code bytes of this cmax tile, zero past cmax
+        // the chunk's code bytes of this row tile, zero past its live rows
+        // (c0 + rows <= cmax; a 4-byte copy that starts below them ends
+        // below cmax, a multiple of 4 on this path)
         const unsigned char* cb =
             p.codes_t + ((size_t)cell * p.M + m0) * p.cmax + c0;
         uint8_t* cd = st + codes_off;
         if (p.async) {
           for (int i = pt; i < mc * (CT / 4); i += PRODUCERS) {
             const int j = i / (CT / 4), c = i % (CT / 4) * 4;
-            const bool ok = c0 + c < p.cmax;
+            const bool ok = c < rows;
             cp_async4(cd + j * CT + c, ok ? cb + (size_t)j * p.cmax + c : cb,
                       ok ? 4 : 0);
           }
@@ -313,8 +341,8 @@ __global__ void __launch_bounds__(THREADS, 1) pq_kernel(const Params p) {
         } else {
           for (int i = pt; i < mc * CT; i += PRODUCERS) {
             const int j = i / CT, c = i % CT;
-            cd[i] = c0 + c < p.cmax ? __ldg(cb + (size_t)j * p.cmax + c)
-                                    : (unsigned char)0;
+            cd[i] = c < rows ? __ldg(cb + (size_t)j * p.cmax + c)
+                             : (unsigned char)0;
           }
           mbar_arrive(&full[stage]);
         }
@@ -346,13 +374,16 @@ __global__ void __launch_bounds__(THREADS, 1) pq_kernel(const Params p) {
     const int ti = *reinterpret_cast<const int*>(ring + stage * p.stage_bytes);
     if (ti < 0) break;
     const int4 tl = __ldg(tiles + ti);
-    const int u = tl.x, s0 = tl.y, n = tl.z & 0xFF, W = tl.z >> 8, c0 = tl.w;
+    const int u = tl.x, s0 = tl.y, n = tl.z & 0xFF, W = (tl.z >> 8) & 0xFF;
+    const int rows = tl.z >> 16, c0 = tl.w;
     // lane = (row group, slot): W slots, 32 / W row groups of R rows
     const int s = lane & (W - 1);
     const int R = RPT * W / 32;
     const int row0 = warp * RPT + (lane / W) * R;
-    const bool live =
-        s < n && __ldg(p.qslot + (size_t)u * p.qcap + s0 + s) >= 0;
+    // a warp whose rows all lie past the cell's live ones does no lookup
+    // and stores nothing (the same for all its lanes)
+    const bool live = warp * RPT < rows && s < n &&
+                      __ldg(p.qslot + (size_t)u * p.qcap + s0 + s) >= 0;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) acc[i] = 0.0f;
 
@@ -382,14 +413,14 @@ __global__ void __launch_bounds__(THREADS, 1) pq_kernel(const Params p) {
 #pragma unroll
       for (int j4 = 0; j4 < RPT / 4; ++j4) {
         if (4 * j4 >= R) continue;
-        const int c = c0 + row0 + 4 * j4;
-        if (p.vec && c + 4 <= p.cmax) {
+        const int r = row0 + 4 * j4;   // rows past the live ones: unwritten
+        if (p.vec && r + 4 <= rows) {
           reinterpret_cast<float4*>(dst)[j4] = make_float4(
               acc[4 * j4], acc[4 * j4 + 1], acc[4 * j4 + 2], acc[4 * j4 + 3]);
         } else {
 #pragma unroll
           for (int b = 0; b < 4; ++b)
-            if (c + b < p.cmax) dst[4 * j4 + b] = acc[4 * j4 + b];
+            if (r + b < rows) dst[4 * j4 + b] = acc[4 * j4 + b];
         }
       }
     }
@@ -397,15 +428,16 @@ __global__ void __launch_bounds__(THREADS, 1) pq_kernel(const Params p) {
 }
 
 template <int RPT>
-int run(const Params& p, int U, cudaStream_t st) {
+int run(const Params& p, int4* list, int U, cudaStream_t st) {
   const int bytes = HEAD + p.stages * p.stage_bytes;
   cudaError_t e = cudaFuncSetAttribute(
       pq_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return int(e);
-  e = cudaMemsetAsync(p.scratch, 0, 16, st);
+  e = cudaMemsetAsync(p.counters, 0, 16, st);
   if (e != cudaSuccess) return int(e);
-  plan_kernel<<<(U + 7) / 8, 256, 0, st>>>(p.cell_ids, p.qslot, p.scratch, U,
-                                           p.qcap, p.cmax, NW * RPT, FPV_PQ_MIN_W);
+  plan_kernel<<<(U + 7) / 8, 256, 0, st>>>(p.cell_ids, p.qslot, p.extent,
+                                           p.counters, list, U, p.qcap,
+                                           p.cmax, NW * RPT, FPV_PQ_MIN_W);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -423,37 +455,46 @@ inline int rows_per_warp(int cmax) {
 extern "C" {
 
 // The ints of scratch that fpv_grouped_cell_scores_pq needs for this shape:
-// two counters and the tile list (at most qcap / 32 + 4 tiles a compact slot
-// and cmax tile, four ints each).
+// the tile list (at most qcap / 32 + 4 tiles a compact slot and cmax tile,
+// four ints each).
 // -1: too many for an int.
 int fpv_grouped_cell_scores_pq_scratch(int U, int qcap, int cmax) {
   const int ct = NW * rows_per_warp(cmax);
   const long long n =
-      4 + 4LL * U * (qcap / 32 + MAX_TAIL) * ((cmax + ct - 1) / ct);
+      4LL * U * (qcap / 32 + MAX_TAIL) * ((cmax + ct - 1) / ct);
   return n > 0x7FFFFFFFLL ? -1 : int(n);
 }
 
 // cell_ids (U+1,) i32 [n_uniq, compact -> cell ids...]; lut (B, M*K) bf16;
 // qslot (U, qcap) i32 query per slot, -1 = empty; codes_t (nlist, M, cmax)
-// u8; out (U, qcap, cmax) f32; scratch: i32, 16-byte aligned, at least
+// u8; extent (nlist,) i32 each cell's occupied extent (its last live row +
+// 1; rows at or past it are left unwritten); out (U, qcap, cmax) f32;
+// counters: 4 i32 (uninitialised), after the launch [row tiles the plan
+// made, -, row tiles a plan over all of cmax would have made, -]; scratch:
+// i32, 16-byte aligned, at least
 // fpv_grouped_cell_scores_pq_scratch(U, qcap, cmax) ints (uninitialised).
 // Returns cudaGetLastError().
 int fpv_grouped_cell_scores_pq(const void* cell_ids, const void* lut,
                                const void* qslot, const void* codes_t,
-                               void* out, int U, int qcap, int cmax, int M,
-                               int K, void* scratch, void* stream) {
+                               const void* extent, void* out, int U, int qcap,
+                               int cmax, int M, int K, void* counters,
+                               void* scratch, void* stream) {
   if (U <= 0 || qcap <= 0 || cmax <= 0) return int(cudaGetLastError());
   if (M <= 0 || K <= 0 || K > 256 || scratch == nullptr ||
-      (reinterpret_cast<uintptr_t>(scratch) % 16) != 0)
+      extent == nullptr || counters == nullptr ||
+      (reinterpret_cast<uintptr_t>(scratch) % 16) != 0 ||
+      (reinterpret_cast<uintptr_t>(counters) % 4) != 0)
     return int(cudaErrorInvalidValue);
   const int rpt = rows_per_warp(cmax);
   Params p;
   p.cell_ids = (const int*)cell_ids;
+  p.extent = (const int*)extent;
   p.lut = (const __nv_bfloat16*)lut;
   p.qslot = (const int*)qslot;
   p.codes_t = (const unsigned char*)codes_t;
   p.out = (float*)out;
-  p.scratch = (int*)scratch;
+  p.counters = (int*)counters;
+  p.tiles = (const int4*)scratch;
   p.qcap = qcap;
   p.cmax = cmax;
   p.M = M;
@@ -471,9 +512,9 @@ int fpv_grouped_cell_scores_pq(const void* cell_ids, const void* lut,
   p.vec = (cmax % 4) == 0 && (reinterpret_cast<uintptr_t>(out) % 16) == 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (rpt) {
-    case 16: return run<16>(p, U, st);
-    case 32: return run<32>(p, U, st);
-    default: return run<48>(p, U, st);
+    case 16: return run<16>(p, (int4*)scratch, U, st);
+    case 32: return run<32>(p, (int4*)scratch, U, st);
+    default: return run<48>(p, (int4*)scratch, U, st);
   }
 }
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ann.ivf_grouped import _metric_scores, _qstats
+from ..ann.ivfpq import cell_extents
 from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, corpus_stats, mm_f32, smallest_k
 from ..kernels.ivf_kernels import bmm_f32
@@ -514,7 +515,10 @@ def build_sharded_ivfpq_search(mesh: Mesh, *, metric: DistanceMetric, k: int,
     exactly), are re-scored exactly by the shard owning each row and
     assembled with ``pmin``.  ``fn(q, centroids, codebooks, codes,
     codes_t, norms, row_table, cent_valid, orow_ids, vectors, validmask,
-    ok_cells)`` -> ``(dists, rows, dropped)``."""
+    ok_cells, extents)`` -> ``(dists, rows, dropped)``; ``extents`` are
+    each shard's own cells' (``ann.ivfpq.cell_extents`` of its block of the
+    row table), and the rows past them, which the kernel leaves unwritten,
+    are masked by ``ok_cells`` (False on every padding slot)."""
     from ..ann.ivf_grouped import grouped_qcap, probe_cells
     from ..ann.ivfpq import _adc_sum, _grouped_pq_candidates, _query_luts
     metric = DistanceMetric.parse(metric)
@@ -522,7 +526,7 @@ def build_sharded_ivfpq_search(mesh: Mesh, *, metric: DistanceMetric, k: int,
     coll = mesh.collectives
 
     def local(qf, centroids, codebooks, codes, codes_t, norms, row_table,
-              cent_valid, ok_cells):
+              cent_valid, ok_cells, extents):
         b, d = qf.shape
         nlist_l, cmax, m = codes.shape
         kk_cb = codebooks.shape[1]
@@ -546,7 +550,7 @@ def build_sharded_ivfpq_search(mesh: Mesh, *, metric: DistanceMetric, k: int,
             qcap = grouped_qcap(b, npl, nlist_l, cmax)
             s, cand, dropped = _grouped_pq_candidates(
                 qf, qc, probe, codes_t, codebooks, norms, row_table,
-                ok_cells, metric=metric, qcap=int(qcap))
+                ok_cells, extents, metric=metric, qcap=int(qcap))
             dropped = dropped.to(torch.int64)
         else:
             lut = _query_luts(qf, codebooks)
@@ -566,7 +570,7 @@ def build_sharded_ivfpq_search(mesh: Mesh, *, metric: DistanceMetric, k: int,
         return vals, crows, dropped
 
     def fn(q, centroids, codebooks, codes, codes_t, norms, row_table,
-           cent_valid, orow_ids, vectors, validmask, ok_cells):
+           cent_valid, orow_ids, vectors, validmask, ok_cells, extents):
         g = _first_row(mesh)
         qfs = on_devices(_t(q).float(), mesh, g)
         parts = []
@@ -576,7 +580,7 @@ def build_sharded_ivfpq_search(mesh: Mesh, *, metric: DistanceMetric, k: int,
                 qfs[j], centroids.block(g, j), codebooks.on(dev),
                 codes.block(g, j), codes_t.block(g, j), norms.block(g, j),
                 row_table.block(g, j), cent_valid.block(g, j),
-                ok_cells.block(g, j)))
+                ok_cells.block(g, j), extents.block(g, j)))
         dropped = coll.psum(g, [p[2] for p in parts])
         # merge the candidates of the (disjoint) cell shards
         vals_g = coll.all_gather(g, [p[0] for p in parts])   # (ndev, B, cc)
@@ -652,6 +656,9 @@ class ShardedIVFPQ:
         vmt = vm.to(row_table.device)
         self.ok_cells = shard((row_table >= 0)
                               & vmt[torch.clamp(row_table, min=0).long()])
+        # each cell's occupied extent, sharded with its cell: a shard's
+        # block holds its own cells'
+        self.extents = shard(cell_extents(row_table))
         self.last_dropped = 0
 
     @classmethod
@@ -709,7 +716,7 @@ class ShardedIVFPQ:
             if not isinstance(queries, torch.Tensor) else queries,
             self.centroids, self.codebooks, self.codes, self.codes_t,
             self.norms, self.row_table, self.cent_valid, self.orow_ids,
-            self.vectors, self.validmask, self.ok_cells)
+            self.vectors, self.validmask, self.ok_cells, self.extents)
         self.last_dropped = int(dropped)
         return d.cpu().numpy(), r.to(torch.int32).cpu().numpy()
 

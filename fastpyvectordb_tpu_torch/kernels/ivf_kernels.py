@@ -12,7 +12,8 @@ Each entry has two versions:
     multiples of 16 bytes (what TMA can address), the first-slice wmma
     kernel for every other shape; never on a failure
     (``grouped_design`` reports which).  B7 builds its work list in an
-    int32 scratch tensor the wrapper allocates;
+    int32 scratch tensor the wrapper allocates, bounded by each cell's
+    occupied extent (``last_pq_tiles`` reads how many row tiles it made);
   * a plain PyTorch version of the same math (``*_plain``): gather the
     compact cells, one batched product, the metric epilogue (B2, B3); a
     table lookup per subspace, summed in order (B7).
@@ -48,13 +49,16 @@ SOURCE = CudaSource("grouped_cell_scores", {
     "fpv_grouped_design": [P, P, I, I],
 })
 SOURCE_PQ = CudaSource("grouped_cell_scores_pq", {
-    "fpv_grouped_cell_scores_pq": [P] * 5 + [I] * 5 + [P, P],
+    "fpv_grouped_cell_scores_pq": [P] * 6 + [I] * 5 + [P, P, P],
     "fpv_grouped_cell_scores_pq_scratch": [I, I, I],
 })
 # the one design of B7 in csrc/grouped_cell_scores_pq.cu
 PQ_DESIGN = "lane_per_slot_ring"
 # bytes of gathered f32 tables per chunk of compact cells (plain B7)
 _PQ_PLAIN_BYTES = 256 << 20
+# the last B7 launch's four plan counters, left on the card, read only by
+# ``last_pq_tiles``
+_PQ_LAST = {"counters": None}
 
 # torch >= 2.8 has an f32-output bf16 batched product on CUDA
 _BMM_OUT_DTYPE = "dtype" in torch.ops.aten.bmm.overloads()
@@ -191,11 +195,12 @@ def grouped_cell_scores_i8(cell_ids: torch.Tensor, qblk: torch.Tensor,
                        qstat, metric, torch.int8)
 
 
-def grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t):
+def grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t, extent=None):
     """Plain ``grouped_cell_scores_pq``: for each chunk of compact cells,
     gather the slots' bf16 tables (empty slots, -1, read query 0) and add
     ``lut[q, m*K + codes_t[cell, m, c]]`` over m in order, in f32 — the
-    order the kernel sums in."""
+    order the kernel sums in.  Every row of cmax is summed: ``extent`` only
+    bounds which rows the kernel writes."""
     u, qcap = qslot.shape
     m, cmax = codes_t.shape[1], codes_t.shape[2]
     kk = lut.shape[1] // m
@@ -219,15 +224,20 @@ def grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t):
 
 
 def grouped_cell_scores_pq(cell_ids: torch.Tensor, lut: torch.Tensor,
-                           qslot: torch.Tensor,
-                           codes_t: torch.Tensor) -> torch.Tensor:
+                           qslot: torch.Tensor, codes_t: torch.Tensor,
+                           extent: torch.Tensor) -> torch.Tensor:
     """(U+1,) i32 compact cell list, (B, M*K) bf16 per-query ADC tables,
     (U, qcap) slot table (query id, -1 = empty), (nlist, M, cmax) uint8
-    transposed cell codes -> (U, qcap, cmax) f32 ADC sums.  Rows past
-    ``cell_ids[0]`` and empty slots are unspecified.  Any shape, K <= 256.
-    The CUDA kernel sizes its slot tiles to each row's load and is fastest
-    where a row's live slots are a prefix, as ``invert_pairs`` fills them;
-    a hole is skipped all the same."""
+    transposed cell codes, (nlist,) i32 cell extents -> (U, qcap, cmax) f32
+    ADC sums.  A cell's extent is its occupied prefix, the index of its
+    last live row + 1 (``ann/ivfpq.py:cell_extents``).  Rows past
+    ``cell_ids[0]``, empty slots and cell rows at or past the cell's extent
+    are unspecified: the CUDA kernel leaves them unwritten, so a caller
+    masks every row past a cell's last live one (the regroup's ``rok``).
+    Any shape, K <= 256.  The CUDA kernel sizes its slot tiles to each
+    row's load and its row tiles to each cell's extent; it is fastest where
+    a row's live slots are a prefix, as ``invert_pairs`` fills them, and a
+    hole is skipped all the same."""
     if codes_t.device.type == "cpu":
         return grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t)
     with annotate("fpv.kernel.grouped_cell_scores_pq"):
@@ -240,27 +250,45 @@ def grouped_cell_scores_pq(cell_ids: torch.Tensor, lut: torch.Tensor,
         check_cuda("lut", torch.bfloat16, lut, (b, mk))
         check_cuda("qslot", torch.int32, qslot, (u, qcap))
         check_cuda("cell_ids", torch.int32, cell_ids, (u + 1,))
-        for t in (lut, qslot, cell_ids):
+        check_cuda("extent", torch.int32, extent, (nlist,))
+        for t in (lut, qslot, cell_ids, extent):
             if t.device != codes_t.device:
                 raise ValueError("grouped_cell_scores_pq: operands on "
                                  "different devices")
         out = torch.empty((u, qcap, cmax), dtype=torch.float32,
                           device=codes_t.device)
         lib = SOURCE_PQ.load()
-        # the kernel's work list (its counters and tiles) lives in scratch
+        # the kernel's work list lives in scratch, its counters apart (kept
+        # after the call for ``last_pq_tiles``)
         ints = lib.fpv_grouped_cell_scores_pq_scratch(u, qcap, cmax)
         if ints < 0:
             raise ValueError("grouped_cell_scores_pq: too many tiles for "
                              f"U={u} qcap={qcap} cmax={cmax}")
         scratch = torch.empty(ints, dtype=torch.int32, device=codes_t.device)
+        counters = torch.empty(4, dtype=torch.int32, device=codes_t.device)
         with torch.cuda.device(codes_t.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.fpv_grouped_cell_scores_pq(
                 cell_ids.data_ptr(), lut.data_ptr(), qslot.data_ptr(),
-                codes_t.data_ptr(), out.data_ptr(), u, qcap, cmax, m, mk // m,
+                codes_t.data_ptr(), extent.data_ptr(), out.data_ptr(), u,
+                qcap, cmax, m, mk // m, counters.data_ptr(),
                 scratch.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"grouped_cell_scores_pq launch failed: CUDA "
                                f"error {rc}")
         LAUNCHES["grouped_cell_scores_pq"] += 1
+        _PQ_LAST["counters"] = counters
         return out
+
+
+def last_pq_tiles():
+    """(row tiles, row tiles over all of cmax) of the last
+    ``grouped_cell_scores_pq`` launch: the tiles its plan made from the
+    cells' extents, and those a plan over every row of cmax would have
+    made for the same slot table.  None before any launch (plain calls do
+    not count).  Reading waits for the card."""
+    counters = _PQ_LAST["counters"]
+    if counters is None:
+        return None
+    made, _, full, _ = counters.tolist()
+    return made, full

@@ -28,7 +28,7 @@ from fastpyvectordb_tpu_torch.ann import ivfpq as tpq
 from fastpyvectordb_tpu_torch.ann.ivfpq import IVFPQIndex
 from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
 from torch_parity import (assert_same_tied_topk, assert_same_topk, clustered,
-                          mean_overlap)
+                          mean_overlap, nan_past_extent)
 
 METRICS = ["cosine", "l2", "ip"]
 N, D = 2000, 32
@@ -40,11 +40,13 @@ B7_RTOL = 1e-5
 # (a) B7: the plain version against the Pallas kernel in interpret mode
 # ---------------------------------------------------------------------------
 
-def _b7_case(seed, nlist, u, n_uniq, qcap, cmax, m, kk, b, loads=None):
-    """The port's operands (per-query tables + slot table) and the JAX
-    kernel's (the slot-gathered tables).  ``loads``: live slots per compact
-    row (a prefix, as ``invert_pairs`` fills them), random in 1..qcap if
-    None."""
+def _b7_case(seed, nlist, u, n_uniq, qcap, cmax, m, kk, b, loads=None,
+             extents=None):
+    """The port's operands (per-query tables + slot table + cell extents)
+    and the JAX kernel's (the slot-gathered tables).  ``loads``: live slots
+    per compact row (a prefix, as ``invert_pairs`` fills them), random in
+    1..qcap if None; ``extents``: each cell's occupied rows, cycled over
+    the cells, cmax (full cells) if None."""
     rng = np.random.default_rng(seed)
     cells = rng.permutation(nlist)[:u].astype(np.int32)
     cells[n_uniq:] = 0                      # the padding tail aliases cell 0
@@ -57,7 +59,9 @@ def _b7_case(seed, nlist, u, n_uniq, qcap, cmax, m, kk, b, loads=None):
     qslot = np.where(np.arange(qcap)[None, :] < load,
                      rng.integers(0, b, (u, qcap)), -1).astype(np.int32)
     codes_t = rng.integers(0, kk, (nlist, m, cmax)).astype(np.uint8)
-    return cell_ids, lut, qslot, codes_t
+    extent = np.resize(np.asarray(cmax if extents is None else extents,
+                                  np.int32), nlist)
+    return cell_ids, lut, qslot, codes_t, extent
 
 
 def _j_b7(cell_ids, lutq, codes_t):
@@ -93,7 +97,7 @@ def _j_b7(cell_ids, lutq, codes_t):
     (5, 4, 3, 16, 100, 5, 13, 7),
 ])
 def test_grouped_cell_scores_pq_plain_matches_pallas(shape):
-    cell_ids, lut, qslot, codes_t = _b7_case(13, *shape)
+    cell_ids, lut, qslot, codes_t, extent = _b7_case(13, *shape)
     n_uniq = shape[2]
     lutq = np.array(lut.float())[np.maximum(qslot, 0)]       # (U, qcap, MK)
     want = np.asarray(_j_b7(jnp.asarray(cell_ids),
@@ -101,7 +105,7 @@ def test_grouped_cell_scores_pq_plain_matches_pallas(shape):
                             jnp.asarray(codes_t)))
     got = ik.grouped_cell_scores_pq(
         torch.as_tensor(cell_ids), lut, torch.as_tensor(qslot),
-        torch.as_tensor(codes_t)).numpy()
+        torch.as_tensor(codes_t), torch.as_tensor(extent)).numpy()
     assert got.shape == want.shape
     live = np.broadcast_to((qslot >= 0)[:, :, None], got.shape)[:n_uniq]
     g, w = got[:n_uniq][live], want[:n_uniq][live]
@@ -111,11 +115,13 @@ def test_grouped_cell_scores_pq_plain_matches_pallas(shape):
 
 
 def test_cpu_tensors_use_plain_version_and_count_nothing():
-    cell_ids, lut, qslot, codes_t = _b7_case(2, 4, 3, 2, 8, 72, 4, 16, 6)
+    cell_ids, lut, qslot, codes_t, extent = _b7_case(2, 4, 3, 2, 8, 72, 4,
+                                                     16, 6)
     before = dict(ik.LAUNCHES)
     ik.grouped_cell_scores_pq(torch.as_tensor(cell_ids), lut,
                               torch.as_tensor(qslot),
-                              torch.as_tensor(codes_t))
+                              torch.as_tensor(codes_t),
+                              torch.as_tensor(extent))
     assert ik.LAUNCHES == before
 
 
@@ -125,7 +131,8 @@ def test_non_cpu_tensor_never_falls_back():
         ik.grouped_cell_scores_pq(
             torch.tensor([2, 0, 1], dtype=torch.int32),
             torch.zeros((5, 64), dtype=torch.bfloat16),
-            torch.zeros((2, 8), dtype=torch.int32), codes_t)
+            torch.zeros((2, 8), dtype=torch.int32), codes_t,
+            torch.zeros((3,), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +379,66 @@ def test_own_build_recall_and_dispatches():
     assert all(h.metadata["g"] == 2 for hits in res for h in hits)
 
 
+def test_cell_extents_are_each_cells_occupied_prefix():
+    rt = torch.tensor([[-1, -1, -1, -1],      # empty
+                       [3, 9, 4, 1],          # full
+                       [7, -1, -1, -1],       # one row
+                       [2, 5, 8, -1],         # a prefix
+                       [6, -1, 0, -1]],       # a hole: to the last live row
+                      dtype=torch.int32)
+    ext = tpq.cell_extents(rt)
+    assert ext.dtype == torch.int32 and ext.tolist() == [0, 4, 1, 3, 3]
+    col, _, _ = _make_col(n=2000, seed=3)
+    col.build_ann(kind="ivfpq", nlist=32, nprobe=8, iters=4, m=8, pq_k=16,
+                  pq_iters=4, tune=False)
+    ann = col._ann
+    ext = ann._extents_cached()
+    assert ann._extents_cached() is ext           # once per row table
+    # a build fills each cell as a prefix: the extent is the row count
+    assert torch.equal(ext.long(), (ann.row_table >= 0).sum(dim=1))
+    np.testing.assert_array_equal(ext.numpy(), ann._cell_counts)
+    assert int(ext.min()) < ann.row_table.shape[1]    # padded cells
+    ann.row_table = ann.row_table.clone()
+    assert ann._extents_cached() is not ext
+    assert torch.equal(ann._extents_cached(), ext)
+
+
+def test_rows_past_a_cells_extent_are_never_read(monkeypatch):
+    """The CUDA kernel leaves each cell row at or past the cell's extent
+    unwritten: with NaN written there, the grouped candidates and every
+    answer are the same (the regroup's ``ok_cells`` mask covers them)."""
+    from fastpyvectordb_tpu_torch.ann.ivf import ok_slot_masks
+    from fastpyvectordb_tpu_torch.ann.ivf_grouped import probe_cells
+    col, _, q = _make_col(n=2000, seed=3)
+    col.build_ann(kind="ivfpq", nlist=32, nprobe=8, iters=4, m=8, pq_k=16,
+                  pq_iters=4, rerank=4, tune=False)
+    ann, metric = col._ann, col.config.metric
+    assert int(ann._extents_cached().min()) < ann.row_table.shape[1]
+    qq = np.repeat(q, 4, axis=0)               # b * nprobe >= nlist: grouped
+    qf = torch.as_tensor(qq)
+    okc, _ = ok_slot_masks(ann)
+
+    def candidates():
+        qc, route = tpq._pq_route(qf, ann.centroids, metric)
+        return tpq._grouped_pq_candidates(
+            qf, qc, probe_cells(-route, ann.nprobe), ann._codes_t_cached(),
+            ann.codebooks, ann.norms, ann.row_table, okc,
+            ann._extents_cached(), metric=metric, qcap=64)[:2]
+
+    def answers():
+        return [ann.search(qq, 10, grouped=True, rerank=r, qcap=64)
+                for r in (0, 4)] + [col.search_arrays(qq, k=10)]
+
+    want_c, want_a = candidates(), answers()
+    monkeypatch.setattr(tpq, "grouped_cell_scores_pq",
+                        nan_past_extent(tpq.grouped_cell_scores_pq))
+    got_c, got_a = candidates(), answers()
+    assert all(torch.equal(w, g) for w, g in zip(want_c, got_c))
+    for want, got in zip(want_a, got_a):
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(w, g)
+
+
 @pytest.mark.parametrize("metric", ["cosine", "ip"])
 def test_own_build_other_metrics(metric):
     col, v, q = _make_col(metric=metric, n=2000, seed=7)
@@ -432,10 +499,10 @@ def test_explicit_knobs_turn_auto_tune_off(monkeypatch):
 def test_cuda_grouped_cell_scores_pq_matches_plain(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cell_ids, lut, qslot, codes_t = (
+    cell_ids, lut, qslot, codes_t, extent = (
         torch.as_tensor(a).cuda() for a in _b7_case(3, *shape))
     n0 = ik.LAUNCHES["grouped_cell_scores_pq"]
-    got = ik.grouped_cell_scores_pq(cell_ids, lut, qslot, codes_t)
+    got = ik.grouped_cell_scores_pq(cell_ids, lut, qslot, codes_t, extent)
     want = ik.grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t)
     torch.cuda.synchronize()
     assert ik.LAUNCHES["grouped_cell_scores_pq"] == n0 + 1
@@ -445,6 +512,81 @@ def test_cuda_grouped_cell_scores_pq_matches_plain(shape):
     assert g.numel() > 0 and torch.isfinite(g).all()
     assert (g - w).abs().max().item() <= B7_RTOL * max(
         w.abs().max().item(), 1.0)
+
+
+def _b7_row_tile(cmax):
+    """Cell rows a B7 row tile holds: 16 consumer warps of 16, 32 or 48
+    rows (``rows_per_warp`` in csrc/grouped_cell_scores_pq.cu)."""
+    return 16 * (16 if cmax <= 256 else 32 if cmax <= 512 else 48)
+
+
+def _b7_slot_tiles(load, minw=8):
+    """Slot tiles B7's plan cuts a compact row of ``load`` live slots into:
+    full tiles of 32, then ``tail_tiles``' tail."""
+    n, r = load // 32, load % 32
+    while r > 0:
+        width = minw
+        while width < r:
+            width *= 2
+        n += 1
+        if 4 * r >= 3 * width or width == minw:
+            break
+        r -= width // 2
+    return n
+
+
+B7_EXTENTS = (0, 1, 47, 48, 49, 767, 768, 769, 1 << 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # nlist, u, n_uniq, qcap, cmax, m, kk, b, loads: one row tile of 768
+    # rows a cell (cmax 768), two (1100) and three (1600), each with the
+    # extents of B7_EXTENTS (cut to cmax; a padding tail at 1100); row
+    # tiles of 256 at cmax 200, with an odd K (no 4-byte copies)
+    (9, 9, 9, 40, 768, 8, 256, 50, (1, 32, 33, 40, 17, 5, 9, 2, 24)),
+    (10, 10, 9, 40, 1100, 12, 64, 30, (33, 1, 32, 40, 9, 5, 8, 17, 3, 6)),
+    (9, 9, 9, 16, 1600, 8, 256, 20, (16, 1, 9, 5, 16, 3, 2, 7, 11)),
+    (9, 9, 9, 8, 200, 5, 13, 7, (8, 1, 3, 5, 8, 2, 7, 4, 6))])
+def test_cuda_b7_scores_rows_below_each_cells_extent_alone(shape,
+                                                          monkeypatch):
+    """Rows below a cell's extent match the plain version, rows at or past
+    it stay as they were (NaN), and the plan makes ceil(extent / row tile)
+    row tiles a slot tile of each loaded compact slot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cmax = shape[4]
+    ops = _b7_case(5, *shape, extents=[min(e, cmax) for e in B7_EXTENTS])
+    cell_ids, lut, qslot, codes_t, extent = (torch.as_tensor(a).cuda()
+                                             for a in ops)
+    want = ik.grouped_cell_scores_pq_plain(cell_ids, lut, qslot, codes_t)
+    empty = torch.empty
+
+    def nan_empty(*args, **kw):
+        t = empty(*args, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    got = ik.grouped_cell_scores_pq(cell_ids, lut, qslot, codes_t, extent)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    n = shape[2]
+    ext = extent[cell_ids[1:1 + n].long()]
+    below = (torch.arange(cmax, device="cuda")[None, :] < ext[:, None])
+    live = qslot[:n] >= 0
+    keep = live[:, :, None] & below[:, None, :]
+    g, w = got[:n][keep], want[:n][keep]
+    assert g.numel() > 0 and torch.isfinite(g).all()
+    assert (g - w).abs().max().item() <= B7_RTOL * max(
+        w.abs().max().item(), 1.0)
+    assert torch.isnan(got[:n][live[:, :, None] & ~below[:, None, :]]).all()
+    ct = _b7_row_tile(cmax)
+    loads = (live.int().cumsum(1) * live).amax(1).tolist()  # prefix loads
+    slot_tiles = [_b7_slot_tiles(x) for x in loads]
+    made = sum(t * -(-e // ct) for t, e in zip(slot_tiles, ext.tolist()))
+    over_cmax = sum(t * -(-cmax // ct) for t in slot_tiles)
+    assert made < over_cmax
+    assert ik.last_pq_tiles() == (made, over_cmax)
 
 
 @pytest.mark.cuda

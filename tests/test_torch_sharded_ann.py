@@ -21,7 +21,7 @@ from fastpyvectordb_tpu_torch.dist import sharded_ann as tsa
 from fastpyvectordb_tpu_torch.dist.sharded_ann import (ShardedInt8,
                                                        ShardedIVF,
                                                        ShardedIVFPQ)
-from torch_parity import assert_same_topk, clustered
+from torch_parity import assert_same_topk, clustered, nan_past_extent
 
 D = 16
 
@@ -218,6 +218,36 @@ def test_sharded_ivfpq_grouped_matches_perquery(built, mesh):
     mism = r_g != r_p
     if mism.any():
         np.testing.assert_allclose(d_g[mism], d_p[mism], atol=2e-3)
+
+
+def test_sharded_ivfpq_extents_are_each_shards_own(built, mesh,
+                                                  monkeypatch):
+    """Each shard hands B7 its own cells' extents, and the rows past them,
+    which the CUDA kernel leaves unwritten, are never read: NaN written
+    there changes no answer."""
+    from fastpyvectordb_tpu_torch.ann import ivfpq as tpq
+    col, v, q, exact = built
+    _ivfpq(col)
+    sh = ShardedIVFPQ.from_index(mesh, col._ann)
+    g = mesh.local_rows()[0]
+    blocks = [sh.extents.block(g, j) for j in mesh.local_data(g)]
+    for j, ext in zip(mesh.local_data(g), blocks):
+        assert torch.equal(ext, tpq.cell_extents(sh.row_table.block(g, j)))
+    ext = torch.cat(blocks)
+    assert torch.equal(ext.long(), (col._ann.row_table >= 0).sum(dim=1))
+    assert int(ext.min()) < col._ann.row_table.shape[1]
+    rng = np.random.default_rng(12)
+    qb = np.asarray(v[rng.integers(0, v.shape[0], 64)]
+                    + 0.1 * rng.standard_normal((64, D)), dtype=np.float32)
+    want = sh.search(qb, 10)
+    calls = []
+    patched = nan_past_extent(tpq.grouped_cell_scores_pq)
+    monkeypatch.setattr(tpq, "grouped_cell_scores_pq",
+                        lambda *a: calls.append(1) or patched(*a))
+    got = sh.search(qb, 10)
+    assert len(calls) == len(blocks)              # the grouped branch ran
+    for w, gv in zip(want, got):
+        np.testing.assert_array_equal(w, gv)
 
 
 def test_sharded_ivf_int8_cells(built, mesh):

@@ -126,3 +126,21 @@ def mean_overlap(a_rows, b_rows) -> float:
     a_rows, b_rows = np.asarray(a_rows), np.asarray(b_rows)
     return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / a.size
                           for a, b in zip(a_rows, b_rows)]))
+
+
+def nan_past_extent(b7):
+    """``b7`` (the ``grouped_cell_scores_pq`` wrapper) with NaN written
+    into every cell row at or past the cell's extent, which the CUDA kernel
+    leaves unwritten: a caller that reads one of those rows now returns
+    NaN or loses a hit."""
+    import torch
+
+    def patched(cell_ids, lut, qslot, codes_t, extent):
+        out = b7(cell_ids, lut, qslot, codes_t, extent)
+        ext = extent[cell_ids[1:1 + out.shape[0]].long()]
+        past = (torch.arange(out.shape[2], device=out.device)[None, :]
+                >= ext[:, None])
+        out[past[:, None, :].expand_as(out)] = float("nan")
+        return out
+
+    return patched

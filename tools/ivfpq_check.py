@@ -112,6 +112,7 @@ def main(argv=None) -> int:
     import torch
     from portbench import checks, data, harness, reference, spec
     from portbench import reference_ivfpq as plain
+    from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
     device = "cpu" if args.small else "cuda"
 
     def emit(**kw):
@@ -170,8 +171,11 @@ def main(argv=None) -> int:
                 ms.append((time.perf_counter() - t) * 1e3)
         runs[name or "sound"] = (pool[:calls * b], checks.stack(answers),
                                  seen)
+        # B7's row tiles in its last call beside those over all of cmax
+        # (None on the CPU)
         emit(step="calls", fault=name, ms=ms, dropped=ann.last_dropped,
-             qcap=ann.last_qcap, handed_to_rerank=len(seen),
+             qcap=ann.last_qcap, row_tiles=ik.last_pq_tiles(),
+             handed_to_rerank=len(seen),
              free_at_first_search=ann._free_bytes, memory=memory())
     sections, _ = ann.export_sections()
     del ann, search    # both hold the collection

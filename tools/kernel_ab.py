@@ -14,9 +14,12 @@ earlier version of the same sources, in turns on one CUDA card.
 Only the kernels whose earlier source lies in the directory are timed.  The
 earlier scan sources (``quant_scores.cu``, ``hamming_scores.cu``,
 ``s8_scores.cu``) have today's entry points and are timed through today's
-wrappers with the library swapped; the earlier grouped sources are the
-first-slice kernels (``fpv_grouped_cell_scores[_i8]`` as now;
-``fpv_grouped_cell_scores_pq`` without the scratch argument).  Each is
+wrappers with the library swapped; the earlier grouped sources are timed
+by their own entry points (``fpv_grouped_cell_scores[_i8]`` as now;
+``fpv_grouped_cell_scores_pq`` as it was before it took the cells'
+extents: no ``extent`` and its counters at the head of ``scratch``, so the
+earlier kernel scores every row of cmax; only the rows below each cell's
+extent, the ones both write, are compared).  Each is
 built with the port's own nvcc flags, beside the headers it was written
 for where ``hopper_scan.cuh`` / ``hopper_common.cuh`` /
 ``topc_epilogue.cuh`` lie in the directory too, else beside today's.
@@ -277,24 +280,28 @@ def grouped_in_turns(old_dir: Path, out_dir: Path) -> None:
                       f"{ms(cs.ivf_library(args)):.4f} ms", flush=True)
     if have_pq:
         old = build_old(old_dir / "grouped_cell_scores_pq.cu", out_dir)
-        old.fpv_grouped_cell_scores_pq.argtypes = [P] * 5 + [I] * 5 + [P]
+        old.fpv_grouped_cell_scores_pq.argtypes = [P] * 5 + [I] * 5 + [P, P]
+        old.fpv_grouped_cell_scores_pq_scratch.argtypes = [I, I, I]
         args = ops["b7"]
-        cell_ids, lut, qslot, codes_t = args
+        cell_ids, lut, qslot, codes_t, _ = args
         u, qcap = qslot.shape
         _, m, cmax = codes_t.shape
         n = int(cell_ids[0])
-        live = (qslot[:n] >= 0)[:, :, None]
+        live = cs.pq_live_rows(args)
+        scratch = torch.empty(
+            old.fpv_grouped_cell_scores_pq_scratch(u, qcap, cmax),
+            dtype=torch.int32, device="cuda")
 
         def run_old():
             out = torch.empty((u, qcap, cmax), device="cuda")
             rc = old.fpv_grouped_cell_scores_pq(
-                *(t.data_ptr() for t in args), out.data_ptr(), u, qcap, cmax,
-                m, lut.shape[1] // m, stream())
+                *(t.data_ptr() for t in args[:4]), out.data_ptr(), u, qcap,
+                cmax, m, lut.shape[1] // m, scratch.data_ptr(), stream())
             assert rc == 0, rc
             return out[:n]
 
-        # only live slots are written: compare those (the timed calls
-        # return the block itself)
+        # only live slots below each cell's extent are written by both:
+        # compare those (the timed calls return the block itself)
         in_turns(f"grouped_cell_scores_pq nprobe {MAIN_PATH_NPROBE['b7']} "
                  f"U={u} n_uniq={n} qcap={qcap} cmax={cmax} M={m} "
                  f"K={lut.shape[1] // m} filled={int(live.sum())}",
