@@ -23,6 +23,15 @@ device, and search is a batched, fixed-shape best-first beam search:
     over sections carried across from the JAX package follows the JAX
     beam's trajectory.
 
+The search records spans on IVF's names where the stage is the same
+(``profiling.annotate``): ``fpv.ann.search`` (root), ``.upload`` (the
+query copy, the navigation tables), ``.route`` (centroid routing and the
+entries' scores), ``.beam`` (one range around all T rounds: a range a
+round would add the profiler's cost to every few small ops), ``.finish``
+(filter, top k, square root) and ``.fetch`` (the copy to the host).
+``last_scored`` counts the rows the last search gathered and scored,
+from its shapes alone: B x (e0 + T x E x R).
+
 Recall is controlled by (beam width W, expansion width E, iterations T);
 ``tune`` picks the cheapest setting clearing a recall target against the
 exact path.  The k-means draws from a ``torch.Generator``
@@ -43,6 +52,7 @@ import torch.nn.functional as F
 from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, mm_f32
 from ..kernels.ivf_kernels import bmm_f32
+from ..profiling import annotate
 from ..quant.kmeans import kmeans_fit
 from ..utils import next_pow2
 
@@ -111,74 +121,82 @@ def _beam_search_kernel(q: torch.Tensor, vectors: torch.Tensor,
         return torch.where(rows >= 0, s, _MASKED)
 
     # ---- route each query to its own entry points ----------------------
-    if metric == DistanceMetric.COSINE:
-        qn = qf / torch.clamp(torch.linalg.norm(qf, dim=1, keepdim=True),
-                              min=1e-30)
-        cn = centroids / torch.clamp(
-            torch.linalg.norm(centroids, dim=1, keepdim=True), min=1e-30)
-        croute = -(qn @ cn.T)
-    elif metric == DistanceMetric.DOT:
-        croute = -(qf @ centroids.T)
-    else:
-        csq = (centroids * centroids).sum(dim=1)
-        croute = csq[None, :] - 2.0 * (qf @ centroids.T)
-    e0 = min(n_init, w, medoids.shape[0])
-    route = _ascending(croute, e0)                          # (B, e0)
-    init_ids = medoids[route].long()
-    init_scores = torch.where(init_ok[route], gather_scores(init_ids),
-                              _MASKED)
-    ids = F.pad(init_ids, (0, w - e0), value=-1)
-    scores = F.pad(init_scores, (0, w - e0), value=_MASKED)
-    expanded = torch.zeros((b, w), dtype=torch.bool, device=q.device)
+    with annotate("fpv.ann.route"):
+        if metric == DistanceMetric.COSINE:
+            qn = qf / torch.clamp(torch.linalg.norm(qf, dim=1, keepdim=True),
+                                  min=1e-30)
+            cn = centroids / torch.clamp(
+                torch.linalg.norm(centroids, dim=1, keepdim=True), min=1e-30)
+            croute = -(qn @ cn.T)
+        elif metric == DistanceMetric.DOT:
+            croute = -(qf @ centroids.T)
+        else:
+            csq = (centroids * centroids).sum(dim=1)
+            croute = csq[None, :] - 2.0 * (qf @ centroids.T)
+        e0 = min(n_init, w, medoids.shape[0])
+        route = _ascending(croute, e0)                      # (B, e0)
+        init_ids = medoids[route].long()
+        init_scores = torch.where(init_ok[route], gather_scores(init_ids),
+                                  _MASKED)
+        ids = F.pad(init_ids, (0, w - e0), value=-1)
+        scores = F.pad(init_scores, (0, w - e0), value=_MASKED)
+        expanded = torch.zeros((b, w), dtype=torch.bool, device=q.device)
 
-    fresh = torch.zeros((b, expand * r), dtype=torch.bool, device=q.device)
-    first = torch.zeros((b, 1), dtype=torch.bool, device=q.device)
-    invalid_key = 2 * neighbors.shape[0] + 2
-    for _ in range(iters):
-        # pick the E best unexpanded entries and mark them expanded
-        sel = torch.where(expanded | (ids < 0), _MASKED, scores)
-        pos = _ascending(sel, expand)                        # (B, E)
-        exp_ids = ids.gather(1, pos)
-        expanded = expanded.scatter(1, pos, True)
-        # gather neighbour lists; invalid expansion rows contribute nothing
-        nb = neighbors[exp_ids.clamp(min=0)].long()          # (B, E, R)
-        cand = torch.where((exp_ids < 0)[:, :, None], -1, nb).reshape(
-            b, expand * r)
-        cand_scores = gather_scores(cand)
-        # merge beam + candidates
-        all_ids = torch.cat([ids, cand], dim=1)
-        all_scores = torch.cat([scores, cand_scores], dim=1)
-        all_exp = torch.cat([expanded, fresh], dim=1)
-        # dedup by id: composite key 2*id + (1 - expanded), so the expanded
-        # copy of a node sorts first and survives (int64: no overflow)
-        real = (all_ids >= 0) & (all_scores < _MASKED * 0.5)
-        id_key = torch.where(real, all_ids * 2 + (~all_exp).long(),
-                             invalid_key)
-        order = torch.argsort(id_key, dim=1, stable=True)
-        s_ids = all_ids.gather(1, order)
-        s_scores = all_scores.gather(1, order)
-        s_exp = all_exp.gather(1, order)
-        dup = torch.cat([first, s_ids[:, 1:] == s_ids[:, :-1]], dim=1)
-        s_scores = torch.where(dup, _MASKED, s_scores)
-        # keep the best W by score
-        keep = _ascending(s_scores, w)
-        ids = s_ids.gather(1, keep)
-        scores = s_scores.gather(1, keep)
-        expanded = s_exp.gather(1, keep)
-        ids = torch.where(scores >= _MASKED * 0.5, -1, ids)
+    with annotate("fpv.ann.beam"):
+        fresh = torch.zeros((b, expand * r), dtype=torch.bool,
+                            device=q.device)
+        first = torch.zeros((b, 1), dtype=torch.bool, device=q.device)
+        invalid_key = 2 * neighbors.shape[0] + 2
+        for _ in range(iters):
+            # pick the E best unexpanded entries and mark them expanded
+            sel = torch.where(expanded | (ids < 0), _MASKED, scores)
+            pos = _ascending(sel, expand)                    # (B, E)
+            exp_ids = ids.gather(1, pos)
+            expanded = expanded.scatter(1, pos, True)
+            # gather neighbour lists; invalid expansion rows contribute
+            # nothing
+            nb = neighbors[exp_ids.clamp(min=0)].long()      # (B, E, R)
+            cand = torch.where((exp_ids < 0)[:, :, None], -1, nb).reshape(
+                b, expand * r)
+            cand_scores = gather_scores(cand)
+            # merge beam + candidates
+            all_ids = torch.cat([ids, cand], dim=1)
+            all_scores = torch.cat([scores, cand_scores], dim=1)
+            all_exp = torch.cat([expanded, fresh], dim=1)
+            # dedup by id: composite key 2*id + (1 - expanded), so the
+            # expanded copy of a node sorts first and survives (int64: no
+            # overflow)
+            real = (all_ids >= 0) & (all_scores < _MASKED * 0.5)
+            id_key = torch.where(real, all_ids * 2 + (~all_exp).long(),
+                                 invalid_key)
+            order = torch.argsort(id_key, dim=1, stable=True)
+            s_ids = all_ids.gather(1, order)
+            s_scores = all_scores.gather(1, order)
+            s_exp = all_exp.gather(1, order)
+            dup = torch.cat([first, s_ids[:, 1:] == s_ids[:, :-1]], dim=1)
+            s_scores = torch.where(dup, _MASKED, s_scores)
+            # keep the best W by score
+            keep = _ascending(s_scores, w)
+            ids = s_ids.gather(1, keep)
+            scores = s_scores.gather(1, keep)
+            expanded = s_exp.gather(1, keep)
+            ids = torch.where(scores >= _MASKED * 0.5, -1, ids)
 
-    if filtermask is not None:
-        # post-navigation filtering: the beam navigates the full graph (a
-        # mask inside navigation would make filtered-out regions
-        # impassable); only the final selection applies the filter
-        fok = (ids >= 0) & filtermask[ids.clamp(min=0)]
-        scores = torch.where(fok, scores, _MASKED)
-    pos = _ascending(scores, min(k, w))
-    out_ids = ids.gather(1, pos)
-    out_scores = scores.gather(1, pos)
-    if metric == DistanceMetric.L2:
-        out_scores = torch.where(out_scores >= _MASKED * 0.5, out_scores,
-                                 torch.sqrt(torch.clamp(out_scores, min=0.0)))
+    with annotate("fpv.ann.finish"):
+        if filtermask is not None:
+            # post-navigation filtering: the beam navigates the full graph
+            # (a mask inside navigation would make filtered-out regions
+            # impassable); only the final selection applies the filter
+            fok = (ids >= 0) & filtermask[ids.clamp(min=0)]
+            scores = torch.where(fok, scores, _MASKED)
+        pos = _ascending(scores, min(k, w))
+        out_ids = ids.gather(1, pos)
+        out_scores = scores.gather(1, pos)
+        if metric == DistanceMetric.L2:
+            out_scores = torch.where(
+                out_scores >= _MASKED * 0.5, out_scores,
+                torch.sqrt(torch.clamp(out_scores, min=0.0)))
+
     return out_scores, out_ids.int()
 
 
@@ -271,6 +289,8 @@ class GraphANN:
         self._built_count = collection._store.count
         self._built_n_valid = collection._store.n_valid
         self._nav_memo = None
+        # rows the last search gathered and scored: B x (e0 + T x E x R)
+        self.last_scored = 0
         # seconds of each build stage (knn, links, kmeans, medoids); empty
         # for an index loaded from sections
         self.build_seconds: dict = {}
@@ -366,18 +386,25 @@ class GraphANN:
         """Top-k of (B, D) queries (numpy, or a tensor).  Returns (dists,
         rows) as numpy (f32, int32), or with ``device_out`` as the device
         tensors (no host synchronisation happens in that call)."""
+        with annotate("fpv.ann.search"):
+            return self._search(queries, k, mask, overfetch, beam, iters,
+                                expand, n_init, device_out)
+
+    def _search(self, queries, k, mask, overfetch, beam, iters, expand,
+                n_init, device_out):
         if self.stale:
             self.__dict__.update(self.rebuilt().__dict__)
         store = self._collection._store
         cfg = self._collection.config
-        if isinstance(queries, torch.Tensor):
-            q = queries.to(store.device, torch.float32)
-            q = q[None, :] if q.ndim == 1 else q
-        else:
-            qh = np.ascontiguousarray(queries, dtype=np.float32)
-            q = store._upload_queries(qh[None, :] if qh.ndim == 1 else qh,
-                                      None)
-        nbr_masked, init_ok = self._nav_tables(store)
+        with annotate("fpv.ann.upload"):
+            if isinstance(queries, torch.Tensor):
+                q = queries.to(store.device, torch.float32)
+                q = q[None, :] if q.ndim == 1 else q
+            else:
+                qh = np.ascontiguousarray(queries, dtype=np.float32)
+                q = store._upload_queries(
+                    qh[None, :] if qh.ndim == 1 else qh, None)
+            nbr_masked, init_ok = self._nav_tables(store)
         filtermask = None
         # None checks, not `or`: an explicit 0 override (sweeps measuring
         # the no-routing / no-expansion corner) must not fall back to the
@@ -399,6 +426,9 @@ class GraphANN:
             # truncate, keeping the filter's overfetch headroom; no cap
             want = k if filtermask is None else k * max(overfetch, 1)
             w = next_pow2(want)
+        e0 = min(n_init, w, self.medoids.shape[0])
+        self.last_scored = q.shape[0] * (e0 + iters * expand
+                                         * self.neighbors.shape[1])
         vals, rows = _beam_search_kernel(
             q, store.vectors, nbr_masked, self.centroids, self.medoids,
             init_ok, filtermask, metric=cfg.metric, k=k, beam=w,
@@ -407,7 +437,8 @@ class GraphANN:
             else "float32")
         if device_out:
             return vals, rows
-        return vals.cpu().numpy(), rows.cpu().numpy()
+        with annotate("fpv.ann.fetch"):
+            return vals.cpu().numpy(), rows.cpu().numpy()
 
     def mark_stale(self) -> None:
         self.stale = True
