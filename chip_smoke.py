@@ -40,9 +40,12 @@ vector fusion) of 262,144 rows with texts.  The graph phase builds the
 graph ANN (``build_ann("graph")``, the JAX package's defaults) over the 1M
 rows, tunes it on held-out queries, gates its recall@10, times it at
 B=1024 and B=1, traces a batch, runs a search under
-``torch.cuda.set_sync_debug_mode("error")`` and saves / reopens it; no
-hand kernel stands behind it (no Pallas kernel stands behind the JAX
-graph search), and its launch counts must stay at zero.  The prime phase
+``torch.cuda.set_sync_debug_mode("error")`` and saves / reopens it;
+every graph search must make one ``fpv_graph_beam`` launch (the beam's
+rounds in one kernel, which replaces no Pallas kernel) and no other hand
+kernel, and the kernel is timed against the plain rounds at B=1 (the
+``graph-b1`` cell's knobs) and at B=1024 (the JAX defaults), with equal
+answers.  The prime phase
 runs the cold-start primer (``python -m fastpyvectordb_tpu_torch.prime``)
 at 1,048,576 rows: cold in a child process into a fresh ``--cache`` (every
 source built by ``nvcc`` there), warm in a second child on that cache
@@ -2942,11 +2945,12 @@ TRACE_NAME = "sharded_batch"
 
 
 def _launch_modules():
+    from fastpyvectordb_tpu_torch.kernels import graph_kernels as gk
     from fastpyvectordb_tpu_torch.kernels import hamming_kernels as hk
     from fastpyvectordb_tpu_torch.kernels import ivf_kernels as ik
     from fastpyvectordb_tpu_torch.kernels import quant_kernels as qk
     from fastpyvectordb_tpu_torch.kernels import s8_kernels as s8
-    return hk, ik, qk, s8
+    return gk, hk, ik, qk, s8
 
 
 def zero_launches() -> None:
@@ -3148,6 +3152,148 @@ GRAPH_BUILD = {"r": 32, "n_entries": 4096, "random_links": 4, "chunk": 4096}
 # GraphANN.tune's grid (beam <= 256, iters <= 32), then points past it
 GRAPH_PAST_GRID = ((256, 32), (256, 48), (512, 32), (512, 48), (512, 64))
 GRAPH_SINGLES = 256
+# (batch, knobs) at which the beam kernel is timed against the plain
+# rounds: the graph-b1 cell's (portbench/configs/cohere768-1m-graph.json)
+# and the JAX package's defaults at the main path's batch
+GRAPH_KERNEL_SHAPES = {
+    "b1": (1, {"beam": 64, "expand": 8, "iters": 8, "n_init": 32}),
+    "b1024": (BATCH, {"beam": 128, "expand": 8, "iters": 16, "n_init": 32})}
+# of the top 10 ids of the kernel's beam and the plain rounds' beam, the
+# share that may differ (a near tie that the f32 sums, in another order,
+# break the other way) and the largest gap of a row both found
+GRAPH_IDS_DIFFER, GRAPH_SCORE_GAP = 5e-4, 1e-5
+
+
+class BeamCounter:
+    """Counts graph searches (``graph_ann._beam_search_kernel`` calls) from
+    its creation until ``stop()``, which puts the function back and
+    returns the count."""
+
+    def __init__(self):
+        from fastpyvectordb_tpu_torch.ann import graph_ann
+        self._mod, self._orig, self.n = graph_ann, \
+            graph_ann._beam_search_kernel, 0
+
+        def counted(*args, **kw):
+            self.n += 1
+            return self._orig(*args, **kw)
+
+        graph_ann._beam_search_kernel = counted
+
+    def stop(self) -> int:
+        self._mod._beam_search_kernel = self._orig
+        return self.n
+
+
+class RowRecorder:
+    """Stands in for the store in ``graph_beam_plain``, which reads it only
+    by gathering rows: keeps the row ids of every gather."""
+
+    def __init__(self, vectors):
+        self.vectors, self.rows = vectors, []
+
+    def __getitem__(self, rows):
+        self.rows.append(rows.reshape(-1))
+        return self.vectors[rows]
+
+    def unique(self) -> int:
+        import torch
+        return int(torch.unique(torch.cat(self.rows)).numel())
+
+
+# distinct queries the B=1 timing cycles through (one query repeated keeps
+# its rows in L2 and times too fast)
+GRAPH_B1_POOL = 128
+
+
+def graph_kernel_vs_plain(ann, queries) -> dict:
+    """``fpv_graph_beam`` against the plain rounds (``graph_beam_plain``) on
+    the index's own tables and the main path's queries, at each of
+    ``GRAPH_KERNEL_SHAPES``: ms a call of each (CUDA events; at B=1 cycling
+    through ``GRAPH_B1_POOL`` distinct queries, and the plain rounds' time
+    is the host launching them); one launch a call; the top 10 of the two
+    beams (at most ``GRAPH_IDS_DIFFER`` of the ids differ, a row both found
+    scores within ``GRAPH_SCORE_GAP``).  Two bytes bounds at 3.35 TB/s: the
+    distinct rows the batch gathers (counted from the plain rounds'
+    gathers), each read once, and every gather, B (e0 + T E R) rows, each
+    read from memory (a row that queries share comes from L2 after its
+    first read, so the first bound is the one a kernel could approach)."""
+    import itertools
+    import torch
+    from fastpyvectordb_tpu_torch.ann import graph_ann
+    from fastpyvectordb_tpu_torch.kernels import graph_kernels as gk
+    col = ann._collection
+    store, cfg = col._store, col.config
+    nbr, init_ok = ann._nav_tables(store)
+    out = {}
+
+    def routed(q, e0):
+        init_ids, live = graph_ann._route(q, ann.centroids, ann.medoids,
+                                          init_ok, cfg.metric, e0)
+        return (q, store.vectors, nbr, init_ids, live)
+
+    for label, (b, knobs) in GRAPH_KERNEL_SHAPES.items():
+        q = torch.as_tensor(queries[:b], device="cuda")
+        e0 = min(knobs["n_init"], knobs["beam"], ann.medoids.shape[0])
+        args = routed(q, e0)
+        kw = {"beam": knobs["beam"], "expand": knobs["expand"],
+              "iters": knobs["iters"], "metric": cfg.metric,
+              "compute_dtype": "bfloat16" if cfg.compute_dtype == "bfloat16"
+              else "float32"}
+        before = gk.LAUNCHES["graph_beam"]
+        got = gk.graph_beam(*args, **kw)
+        if gk.LAUNCHES["graph_beam"] != before + 1:
+            raise AssertionError(f"graph kernel {label}: no launch")
+        rec = RowRecorder(store.vectors)
+        want = gk.graph_beam_plain(args[0], rec, *args[2:], **kw)
+        top = [(ids.gather(1, graph_ann._ascending(sc, K)).cpu().numpy(),
+                sc.gather(1, graph_ann._ascending(sc, K)).cpu().numpy())
+               for ids, sc in (got, want)]
+        (gi, gs), (wi, ws) = top
+        differ = sum(len(set(a) - set(w)) for a, w in zip(gi, wi))
+        gap = 0.0
+        for a, sa, w, sw in zip(gi, gs, wi, ws):
+            mine = dict(zip(a.tolist(), sa.tolist()))
+            gap = max([gap] + [abs(mine[r] - s) for r, s in
+                               zip(w.tolist(), sw.tolist()) if r in mine])
+        if differ > GRAPH_IDS_DIFFER * wi.size or gap > GRAPH_SCORE_GAP:
+            raise AssertionError(f"graph kernel {label}: {differ} of "
+                                 f"{wi.size} top-10 ids differ from the "
+                                 f"plain rounds, score gap {gap}")
+        if b == 1:
+            pool = [routed(torch.as_tensor(queries[i:i + 1], device="cuda"),
+                           e0) for i in range(GRAPH_B1_POOL)]
+            nxt = itertools.cycle(pool).__next__
+            kernel_ms = cuda_ms(lambda: gk.graph_beam(*nxt(), **kw),
+                                reps=GRAPH_B1_POOL - 1)
+            plain_ms = cuda_ms(lambda: gk.graph_beam_plain(*nxt(), **kw),
+                               reps=20)
+        else:
+            kernel_ms = cuda_ms(lambda: gk.graph_beam(*args, **kw), reps=10)
+            plain_ms = cuda_ms(lambda: gk.graph_beam_plain(*args, **kw),
+                               reps=3)
+        item = store.vectors.element_size()
+        gathers = b * (e0 + knobs["iters"] * knobs["expand"] * nbr.shape[1])
+        unique = rec.unique()
+        bnd = bound(unique * DIMS * item, 0.0, "f32")
+        every = bound(gathers * DIMS * item, 0.0, "f32")["bound_ms"]
+        out[label] = {"batch": b, **knobs, "kernel_ms": kernel_ms,
+                      "plain_ms": plain_ms, "ids_differ": differ,
+                      "ids": int(wi.size), "same_beam": bool(
+                          torch.equal(got[0], want[0])),
+                      "score_gap": gap, **bnd, "rows_gathered": gathers,
+                      "rows_distinct": unique,
+                      "share_of_bound": bnd["bound_ms"] / kernel_ms,
+                      "gathers_bound_ms": every,
+                      "share_of_gathers_bound": every / kernel_ms}
+        log(f"[graph] fpv_graph_beam at B={b} {knobs}: {kernel_ms:.4f} ms "
+            f"(plain rounds {plain_ms:.4f} ms); {unique} distinct rows of "
+            f"{gathers} gathered: bytes bound {bnd['bound_ms']:.4f} ms "
+            f"({100 * bnd['bound_ms'] / kernel_ms:.1f}%), every gather "
+            f"from memory {every:.4f} ms ({100 * every / kernel_ms:.1f}%); "
+            f"top-10 ids differing {differ} of {wi.size}, score gap "
+            f"{gap:.3g}, whole beam equal {out[label]['same_beam']}")
+    return out
 
 
 def phase_graph(host, ids, metas, queries, tune_queries, timing_batches,
@@ -3161,9 +3307,9 @@ def phase_graph(host, ids, metas, queries, tune_queries, timing_batches,
     ``search(..., device_out=True)`` under
     ``torch.cuda.set_sync_debug_mode("error")``; a filtered search
     (``cat == 3``) against the filtered exact scan; ``optimize()``'s graph
-    branch; save -> reopen -> equal hits.  No hand kernel stands behind
-    this path (the JAX package's graph search is XLA, no Pallas kernel):
-    the counters must stay at zero through it."""
+    branch; save -> reopen -> equal hits.  Every search up to the save
+    makes one ``fpv_graph_beam`` launch (the beam's rounds in one kernel)
+    and no other hand kernel runs; then ``graph_kernel_vs_plain``."""
     import shutil
     import warnings
     import numpy as np
@@ -3178,6 +3324,7 @@ def phase_graph(host, ids, metas, queries, tune_queries, timing_batches,
     col = db.create_collection("graph", dimensions=DIMS, metric="cosine")
     col.insert_batch(host, ids, metas)
     zero_launches()
+    beams = BeamCounter()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as warned:
@@ -3264,10 +3411,15 @@ def phase_graph(host, ids, metas, queries, tune_queries, timing_batches,
     report = col.optimize(k=K, build=False, install=False)
     if "cost_us_measured" not in report.get("ann", {}):
         raise AssertionError(f"graph: optimize report {report}")
+    searches = beams.stop()
     launches = nonzero_launches()
-    if launches:
-        raise AssertionError(f"graph: hand kernels launched on the graph "
-                             f"path: {launches}")
+    if launches != {"graph_beam": searches}:
+        raise AssertionError(f"graph: {searches} searches made {launches}: "
+                             "one fpv_graph_beam launch a search and no "
+                             "other hand kernel")
+    log(f"[graph] {searches} searches, {launches['graph_beam']} "
+        "fpv_graph_beam launches, no other hand kernel")
+    kernel_vs_plain = graph_kernel_vs_plain(ann, queries)
 
     # -- save -> reopen -> equal hits --------------------------------------
     t0 = time.perf_counter()
@@ -3293,7 +3445,8 @@ def phase_graph(host, ids, metas, queries, tune_queries, timing_batches,
         "b1_p50_ms": lat["p50_ms"], "b1_p99_ms": lat["p99_ms"],
         "b1_qps": lat["qps"], "trace": trace, "no_sync": True,
         "filtered_recall": frec, "optimize_ann": report["ann"],
-        "save_reload_s": reload_s, "launches": launches, "card": card}
+        "save_reload_s": reload_s, "launches": launches,
+        "kernel_vs_plain": kernel_vs_plain, "card": card}
     log(f"[graph] {card}: recall@10 {rec:.4f}, QPS {qps:.1f} at B={BATCH}, "
         f"B=1 p50 {lat['p50_ms']:.3f} ms / p99 {lat['p99_ms']:.3f} ms, "
         f"trace idle share {trace['idle_share']}, filtered (cat == 3) "
@@ -3531,7 +3684,7 @@ PRIME_ARGS = ("--dims", str(DIMS), "--metric", "cosine", "--modes",
               "exact,int8,binary", "--max-batch", str(BATCH), "--k", str(K))
 PRIME_SOURCES = ("quant_scores.cu", "grouped_cell_scores.cu",
                  "grouped_cell_scores_pq.cu", "hamming_scores.cu",
-                 "s8_scores.cu")
+                 "s8_scores.cu", "graph_beam.cu")
 NATIVE_SOURCES = ("bm25.cpp", "graph.cpp")
 
 

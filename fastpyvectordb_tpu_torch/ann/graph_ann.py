@@ -17,18 +17,21 @@ device, and search is a batched, fixed-shape best-first beam search:
     product for all B queries), merges the candidates into the beam and
     deduplicates by a stable sort on node id (the expanded flag rides a
     composite key, so the expanded copy of a node survives).  The rounds
-    run on the device with no host synchronisation; the result is fetched
-    once at the end.  Every selection is a stable ascending sort, which
-    orders ties as ``lax.top_k`` does (lower position first), so a search
-    over sections carried across from the JAX package follows the JAX
-    beam's trajectory.
+    run on the device with no host synchronisation
+    (``kernels/graph_kernels.py:graph_beam``: on the card one launch of the
+    hand-written kernel for all rounds, and a ``ValueError`` for a search
+    past its shape rule; on the CPU the plain rounds); the result is
+    fetched once at the end.  Every selection
+    is a stable ascending sort, which orders ties as ``lax.top_k`` does
+    (lower position first), so a search over sections carried across from
+    the JAX package follows the JAX beam's trajectory.
 
 The search records spans on IVF's names where the stage is the same
 (``profiling.annotate``): ``fpv.ann.search`` (root), ``.upload`` (the
-query copy, the navigation tables), ``.route`` (centroid routing and the
-entries' scores), ``.beam`` (one range around all T rounds: a range a
-round would add the profiler's cost to every few small ops), ``.finish``
-(filter, top k, square root) and ``.fetch`` (the copy to the host).
+query copy, the navigation tables), ``.route`` (centroid routing),
+``.beam`` (one range around ``graph_beam``: the entries' scores and all T
+rounds), ``.finish`` (filter, top k, square root) and ``.fetch`` (the copy
+to the host).
 ``last_scored`` counts the rows the last search gathered and scored,
 from its shapes alone: B x (e0 + T x E x R).
 
@@ -47,11 +50,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.types import DistanceMetric
 from ..kernels.distances import MASKED, mm_f32
-from ..kernels.ivf_kernels import bmm_f32
+from ..kernels.graph_kernels import _ascending, graph_beam
 from ..profiling import annotate
 from ..quant.kmeans import kmeans_fit
 from ..utils import next_pow2
@@ -62,35 +64,25 @@ _MASKED = float(MASKED)
 _KNN_BLOCK_BYTES = 4 << 30
 
 
-def _scores_vs_rows(q: torch.Tensor, vecs: torch.Tensor, metric,
-                    compute_dtype: str) -> torch.Tensor:
-    """q (B, D) f32, vecs (B, C, D) any dtype -> (B, C) f32 scores (lower =
-    closer), in the norm-expansion form.  The rows' squared norms are
-    summed in f32 from the gathered rows in their storage dtype; the cross
-    term is an f32-output batched product of ``compute_dtype`` operands,
-    never rounded to bf16."""
-    metric = DistanceMetric.parse(metric)
-    cd = getattr(torch, compute_dtype)
-    qf = q.float()
-    b, c, d = vecs.shape
-    flat = vecs.reshape(b * c, 1, d)
-    vsq = bmm_f32(flat, flat).reshape(b, c)
-    cross = bmm_f32(qf.to(cd)[:, None, :], vecs.to(cd))[:, 0, :]
+def _route(qf: torch.Tensor, centroids: torch.Tensor, medoids: torch.Tensor,
+           init_ok: torch.Tensor, metric, e0: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's ``e0`` entry points: the medoids of its nearest routing
+    centroids (ties to the lower centroid), (B, e0) int32, and their
+    liveness, (B, e0) bool."""
     if metric == DistanceMetric.COSINE:
-        qinv = 1.0 / torch.clamp(torch.linalg.norm(qf, dim=1, keepdim=True),
-                                 min=1e-30)
-        rinv = torch.rsqrt(torch.clamp(vsq, min=1e-30))
-        return 1.0 - cross * qinv * rinv
-    if metric == DistanceMetric.L2:
-        qsq = (qf * qf).sum(dim=1)
-        return torch.clamp(qsq[:, None] + vsq - 2.0 * cross, min=0.0)
-    return -cross
-
-
-def _ascending(s: torch.Tensor, n: int) -> torch.Tensor:
-    """Positions of the ``n`` smallest entries of each row, ties to the
-    lower position (``lax.top_k`` of the negated scores)."""
-    return torch.argsort(s, dim=1, stable=True)[:, :n]
+        qn = qf / torch.clamp(torch.linalg.norm(qf, dim=1, keepdim=True),
+                              min=1e-30)
+        cn = centroids / torch.clamp(
+            torch.linalg.norm(centroids, dim=1, keepdim=True), min=1e-30)
+        croute = -(qn @ cn.T)
+    elif metric == DistanceMetric.DOT:
+        croute = -(qf @ centroids.T)
+    else:
+        csq = (centroids * centroids).sum(dim=1)
+        croute = csq[None, :] - 2.0 * (qf @ centroids.T)
+    route = _ascending(croute, e0)                          # (B, e0)
+    return medoids[route], init_ok[route]
 
 
 def _beam_search_kernel(q: torch.Tensor, vectors: torch.Tensor,
@@ -107,80 +99,22 @@ def _beam_search_kernel(q: torch.Tensor, vectors: torch.Tensor,
     (n_e,) int32 the routing entries, init_ok (n_e,) their liveness;
     filtermask (cap,) bool or None (applied after navigation).  Returns
     (scores (B, min(k, beam)) f32, rows int32); L2 scores are sqrt'd,
-    missing hits score ``MASKED``."""
+    missing hits score ``MASKED``.  The rounds are ``graph_beam``'s (one
+    kernel launch on the card)."""
     metric = DistanceMetric.parse(metric)
-    b = q.shape[0]
-    r = neighbors.shape[1]
     w = beam
     qf = q.float()
 
-    def gather_scores(rows):  # (B, C) int64 -> (B, C) f32
-        s = _scores_vs_rows(qf, vectors[rows.clamp(min=0)], metric,
-                            compute_dtype)
-        # tombstoned targets are already -1 in the neighbour table
-        return torch.where(rows >= 0, s, _MASKED)
-
     # ---- route each query to its own entry points ----------------------
     with annotate("fpv.ann.route"):
-        if metric == DistanceMetric.COSINE:
-            qn = qf / torch.clamp(torch.linalg.norm(qf, dim=1, keepdim=True),
-                                  min=1e-30)
-            cn = centroids / torch.clamp(
-                torch.linalg.norm(centroids, dim=1, keepdim=True), min=1e-30)
-            croute = -(qn @ cn.T)
-        elif metric == DistanceMetric.DOT:
-            croute = -(qf @ centroids.T)
-        else:
-            csq = (centroids * centroids).sum(dim=1)
-            croute = csq[None, :] - 2.0 * (qf @ centroids.T)
         e0 = min(n_init, w, medoids.shape[0])
-        route = _ascending(croute, e0)                      # (B, e0)
-        init_ids = medoids[route].long()
-        init_scores = torch.where(init_ok[route], gather_scores(init_ids),
-                                  _MASKED)
-        ids = F.pad(init_ids, (0, w - e0), value=-1)
-        scores = F.pad(init_scores, (0, w - e0), value=_MASKED)
-        expanded = torch.zeros((b, w), dtype=torch.bool, device=q.device)
+        init_ids, init_live = _route(qf, centroids, medoids, init_ok,
+                                     metric, e0)
 
     with annotate("fpv.ann.beam"):
-        fresh = torch.zeros((b, expand * r), dtype=torch.bool,
-                            device=q.device)
-        first = torch.zeros((b, 1), dtype=torch.bool, device=q.device)
-        invalid_key = 2 * neighbors.shape[0] + 2
-        for _ in range(iters):
-            # pick the E best unexpanded entries and mark them expanded
-            sel = torch.where(expanded | (ids < 0), _MASKED, scores)
-            pos = _ascending(sel, expand)                    # (B, E)
-            exp_ids = ids.gather(1, pos)
-            expanded = expanded.scatter(1, pos, True)
-            # gather neighbour lists; invalid expansion rows contribute
-            # nothing
-            nb = neighbors[exp_ids.clamp(min=0)].long()      # (B, E, R)
-            cand = torch.where((exp_ids < 0)[:, :, None], -1, nb).reshape(
-                b, expand * r)
-            cand_scores = gather_scores(cand)
-            # merge beam + candidates
-            all_ids = torch.cat([ids, cand], dim=1)
-            all_scores = torch.cat([scores, cand_scores], dim=1)
-            all_exp = torch.cat([expanded, fresh], dim=1)
-            # dedup by id: composite key 2*id + (1 - expanded), so the
-            # expanded copy of a node sorts first and survives (int64: no
-            # overflow)
-            real = (all_ids >= 0) & (all_scores < _MASKED * 0.5)
-            id_key = torch.where(real, all_ids * 2 + (~all_exp).long(),
-                                 invalid_key)
-            order = torch.argsort(id_key, dim=1, stable=True)
-            s_ids = all_ids.gather(1, order)
-            s_scores = all_scores.gather(1, order)
-            s_exp = all_exp.gather(1, order)
-            dup = torch.cat([first, s_ids[:, 1:] == s_ids[:, :-1]], dim=1)
-            s_scores = torch.where(dup, _MASKED, s_scores)
-            # keep the best W by score
-            keep = _ascending(s_scores, w)
-            ids = s_ids.gather(1, keep)
-            scores = s_scores.gather(1, keep)
-            expanded = s_exp.gather(1, keep)
-            ids = torch.where(scores >= _MASKED * 0.5, -1, ids)
+        ids, scores = graph_beam(qf, vectors, neighbors, init_ids, init_live,
+                                 beam=w, expand=expand, iters=iters,
+                                 metric=metric, compute_dtype=compute_dtype)
 
     with annotate("fpv.ann.finish"):
         if filtermask is not None:

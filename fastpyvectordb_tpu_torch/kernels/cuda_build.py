@@ -126,8 +126,20 @@ def build_all(*sources: CudaSource) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+def current_stream(device) -> int:
+    """The current stream of ``device`` (a CUDA ``torch.device``) as a
+    pointer, for a launch: the raw accessor that Triton's launcher uses,
+    which makes no Python stream object as ``torch.cuda.current_stream``
+    does on each call."""
+    import torch
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
+
+
 def all_sources() -> List[CudaSource]:
     """Every hand-written source of the package, for ``build_all``."""
-    from . import hamming_kernels, ivf_kernels, quant_kernels, s8_kernels
+    from . import (graph_kernels, hamming_kernels, ivf_kernels,
+                   quant_kernels, s8_kernels)
     return [quant_kernels.SOURCE, ivf_kernels.SOURCE, ivf_kernels.SOURCE_PQ,
-            hamming_kernels.SOURCE, s8_kernels.SOURCE]
+            hamming_kernels.SOURCE, s8_kernels.SOURCE, graph_kernels.SOURCE]

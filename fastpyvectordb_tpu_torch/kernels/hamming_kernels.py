@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..profiling import annotate
-from .cuda_build import CudaSource, I, P
+from .cuda_build import CudaSource, I, P, current_stream
 from .quant_kernels import check_cuda
 
 LAUNCHES = {"hamming_mxu_scores": 0, "hamming_scores": 0}
@@ -94,7 +94,7 @@ def _launch(entry: str, qcodes: torch.Tensor, codes: torch.Tensor,
     out = torch.empty((b, n), dtype=dtype, device=codes.device)
     lib = SOURCE.load()
     with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = current_stream(codes.device)
         rc = getattr(lib, "fpv_" + entry)(
             qpm.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, w,
             qpm.shape[1], stream)

@@ -36,7 +36,7 @@ import torch
 
 from ..core.types import DistanceMetric
 from ..profiling import annotate
-from .cuda_build import CudaSource, I, P
+from .cuda_build import CudaSource, I, P, current_stream
 from .distances import MASKED
 from .quant_kernels import METRIC_CODE, check_cuda
 
@@ -136,7 +136,7 @@ def _launch(entry, counter, cell_ids, qblk, cells, norms, okf, extra, qstat,
                       device=cells.device)
     lib = SOURCE.load()
     with torch.cuda.device(cells.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = current_stream(cells.device)
         rc = getattr(lib, entry)(
             cell_ids.data_ptr(), qblk.data_ptr(), cells.data_ptr(),
             norms.data_ptr(), okf.data_ptr(),
@@ -267,7 +267,7 @@ def grouped_cell_scores_pq(cell_ids: torch.Tensor, lut: torch.Tensor,
         scratch = torch.empty(ints, dtype=torch.int32, device=codes_t.device)
         counters = torch.empty(4, dtype=torch.int32, device=codes_t.device)
         with torch.cuda.device(codes_t.device):
-            stream = torch.cuda.current_stream().cuda_stream
+            stream = current_stream(codes_t.device)
             rc = lib.fpv_grouped_cell_scores_pq(
                 cell_ids.data_ptr(), lut.data_ptr(), qslot.data_ptr(),
                 codes_t.data_ptr(), extent.data_ptr(), out.data_ptr(), u,

@@ -30,7 +30,7 @@ import torch
 
 from ..core.types import DistanceMetric
 from ..profiling import annotate
-from .cuda_build import CudaSource, I, P
+from .cuda_build import CudaSource, I, P, current_stream
 
 LAUNCHES = {"sq_scores": 0, "int4_scores": 0}
 
@@ -154,7 +154,7 @@ def _launch(entry, counter, kind, q_in, qsq, codes, vmin, rscale, width,
     out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
     lib = SOURCE.load()
     with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = current_stream(codes.device)
         rc = getattr(lib, entry)(
             qk.data_ptr(), codes.data_ptr(), sv.data_ptr(), qsq.data_ptr(),
             out.data_ptr(), b, n, width, dims.numel(), METRIC_CODE[metric],

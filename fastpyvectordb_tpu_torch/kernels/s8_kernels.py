@@ -36,7 +36,7 @@ import torch
 
 from ..core.types import DistanceMetric
 from ..profiling import annotate
-from .cuda_build import CudaSource, I, P
+from .cuda_build import CudaSource, I, P, current_stream
 from .distances import MASKED, smallest_k
 from .quant_kernels import check_cuda
 
@@ -102,7 +102,7 @@ def _launch(entry: str, qi: torch.Tensor, codes: torch.Tensor, n: int,
     out = torch.empty((b, n), dtype=torch.int32, device=codes.device)
     lib = SOURCE.load()
     with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = current_stream(codes.device)
         rc = getattr(lib, "fpv_" + entry)(
             qk.data_ptr(), codes.data_ptr(), out.data_ptr(), b, n, d,
             qk.shape[1], stream)
@@ -255,7 +255,7 @@ def s8_topc(qi: torch.Tensor, codes: torch.Tensor, qscale: torch.Tensor,
             vals = torch.empty((b, c), dtype=torch.float32,
                                device=codes.device)
             rows = torch.empty((b, c), dtype=torch.int64, device=codes.device)
-            stream = torch.cuda.current_stream().cuda_stream
+            stream = current_stream(codes.device)
             rc = lib.fpv_s8_topc(
                 qk.data_ptr(), codes.data_ptr(), qparams.data_ptr(),
                 rstat.data_ptr(), mask.data_ptr(), lists.data_ptr(), b, n, d,

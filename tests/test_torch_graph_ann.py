@@ -30,6 +30,7 @@ from fastpyvectordb_tpu.persist.format import load_container as j_load
 from fastpyvectordb_tpu_torch.ann import graph_ann as tg
 from fastpyvectordb_tpu_torch.core import costmodel as tcm
 from fastpyvectordb_tpu_torch.core.types import DistanceMetric as TMetric
+from fastpyvectordb_tpu_torch.kernels.graph_kernels import _scores_vs_rows
 from fastpyvectordb_tpu.core.types import DistanceMetric as JMetric
 from torch_parity import MASKED, assert_same_topk, clustered, mean_overlap
 
@@ -72,8 +73,8 @@ def test_scores_vs_rows_matches_jax(metric, storage, compute):
     tv = torch.from_numpy(vecs).to(getattr(torch, storage))
     want = jg._scores_vs_rows(jnp.asarray(q), jv, JMetric.parse(metric),
                               compute)
-    got = tg._scores_vs_rows(torch.from_numpy(q), tv, TMetric.parse(metric),
-                             compute)
+    got = _scores_vs_rows(torch.from_numpy(q), tv, TMetric.parse(metric),
+                          compute)
     assert got.dtype == torch.float32
     _close(got.numpy(), np.asarray(want),
            F32_TOL if compute == "float32" else BF16_TOL)
